@@ -1,13 +1,13 @@
-// Native golden-model oracle for ntt_aie_tpu.
+// Native golden-model oracle for ntt_aie.
 //
-// TPU-native counterpart of the reference's C++ host oracle + vector
+// This framework's counterpart of the reference's C++ host oracle + vector
 // generator (reference src/test.cpp:15-60: modPow/make_roots/ntt). This is
 // a fresh implementation with exact 64-bit semantics, used by the test
 // harness (via ctypes) to cross-check the NumPy oracle and the device
 // kernels, and to generate reference vectors fast at large n.
 //
 // It also pins the *scalar models* of the three modular-multiplication
-// strategies the TPU kernels implement (Barrett "2k", Montgomery REDC with
+// strategies the device code implements (Barrett "2k", Montgomery REDC with
 // R=2^32, Goldilocks two-limb), so kernel bit-exactness is defined against
 // compiled native code, not just Python.
 //

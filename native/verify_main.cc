@@ -2,7 +2,7 @@
 //
 // The reference ships a C++ host driver whose job ends in an elementwise
 // compare against a CPU oracle with PASS/FAIL exit codes
-// (reference src/test.cpp:203-247). This binary is that role for the TPU
+// (reference src/test.cpp:203-247). This binary is that role for this
 // framework, decoupled from Python: the JAX side dumps (input, claimed
 // output) vectors to a file, and this independently-compiled C++ oracle
 // recomputes and compares — a cross-language bit-exactness gate.

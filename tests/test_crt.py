@@ -6,8 +6,8 @@ math — the same bit-exactness contract as the NTT kernels."""
 import numpy as np
 import pytest
 
-from ntt_aie_tpu import fields as F
-from ntt_aie_tpu.ops.crt import limbs_to_int, make_crt_combine
+from ntt_aie import fields as F
+from ntt_aie.ops.crt import limbs_to_int, make_crt_combine
 
 FIELD_SETS = [
     (F.P_998244353, F.P_2013265921),
@@ -82,7 +82,7 @@ def test_combine_rejects_wide_primes():
 
 def test_rns_limbs_path_matches_object_path(rng):
     """RNSPolymul.polymul_limbs == the host-combine fallback exactly."""
-    from ntt_aie_tpu.rns import RNSPolymul
+    from ntt_aie.rns import RNSPolymul
 
     n = 16
     rns = RNSPolymul(4, negacyclic=True)
@@ -123,7 +123,7 @@ def test_limbs_to_int_empty_limb_axis():
 def test_rns_batched_polymul(rng):
     """(B, n) inputs route to the plans' batched kernel builders and the
     elementwise device combine broadcasts over the batch axis."""
-    from ntt_aie_tpu.rns import RNSPolymul
+    from ntt_aie.rns import RNSPolymul
 
     n, B = 16, 3
     rns = RNSPolymul(4)
@@ -154,7 +154,7 @@ def test_rns_batched_polymul(rng):
     import pytest as _pytest
 
     if len(jax.devices()) >= 8:
-        from ntt_aie_tpu.parallel.mesh import make_mesh
+        from ntt_aie.parallel.mesh import make_mesh
 
         rm = RNSPolymul(10, mesh=make_mesh(8), engine="xla")
         ab = np.ones((2, 1 << 10), dtype=object)

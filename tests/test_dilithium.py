@@ -4,8 +4,8 @@ C++ schoolbook gate."""
 
 import numpy as np
 
-from ntt_aie_tpu import dilithium as D
-from ntt_aie_tpu import reference as ref
+from ntt_aie import dilithium as D
+from ntt_aie import reference as ref
 
 Q = 8380417
 
@@ -77,7 +77,7 @@ def test_polymul_matches_schoolbook_negacyclic(rng):
 
 
 def test_native_schoolbook_gate(tmp_path, rng):
-    from ntt_aie_tpu import native_oracle as native
+    from ntt_aie import native_oracle as native
 
     a = rng.integers(0, Q, 256)
     b = rng.integers(0, Q, 256)
@@ -139,7 +139,7 @@ def test_matvec_shared_matrix_batched_vectors(rng):
 
 def test_matvec_native_gate(rng):
     """Matvec summation vs the native C++ schoolbook oracle."""
-    from ntt_aie_tpu import native_oracle as native
+    from ntt_aie import native_oracle as native
 
     k, l = 2, 2
     A = rng.integers(0, Q, (k, l, 256))

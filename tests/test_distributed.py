@@ -9,12 +9,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ntt_aie_tpu import fields as F
-from ntt_aie_tpu import reference as ref
-from ntt_aie_tpu.config import NTTConfig
-from ntt_aie_tpu.plan import build_plan
-from ntt_aie_tpu.parallel.mesh import make_mesh
-from ntt_aie_tpu.parallel.fourstep import build_distributed_plan
+from ntt_aie import fields as F
+from ntt_aie import reference as ref
+from ntt_aie.config import NTTConfig
+from ntt_aie.plan import build_plan
+from ntt_aie.parallel.mesh import make_mesh
+from ntt_aie.parallel.fourstep import build_distributed_plan
 
 
 @pytest.fixture(scope="module")
@@ -31,11 +31,26 @@ def test_distributed_matches_single_chip(mesh8, rng):
     aj = jnp.asarray(a, dtype=jnp.uint32)
 
     single = build_plan(cfg, engine="xla")
-    dist = build_distributed_plan(cfg, mesh8, engine="xla")
+    dist = build_distributed_plan(cfg, mesh8)
 
     want = np.asarray(single.fwd(aj))
     got = np.asarray(dist.fwd(dist.shard_input(a))).reshape(-1)
     assert np.array_equal(got, want), "distributed fwd != single-chip fwd"
+
+
+def test_distributed_nested_depth_matches_single_chip(mesh8, rng):
+    """Executed at nested column depth (n1 = n2 = 256 rows: the R x S
+    column networks): fwd bit-identical to the single-device plan,
+    inverse back to the input."""
+    field = F.P_469762049
+    cfg = NTTConfig(field=field, log_n=16, rows_log2=8, num_shards=8)
+    a = rng.integers(0, field.p, cfg.n)
+    dist = build_distributed_plan(cfg, mesh8)
+    single = build_plan(cfg, engine="xla")
+    spec = dist.fwd(dist.shard_input(a))
+    assert np.array_equal(np.asarray(spec).reshape(-1),
+                          np.asarray(single.fwd(jnp.asarray(a, jnp.uint32))))
+    assert np.array_equal(np.asarray(dist.inv(spec)).reshape(-1), a)
 
 
 def test_distributed_roundtrip_and_natural(mesh8, rng):
@@ -43,7 +58,7 @@ def test_distributed_roundtrip_and_natural(mesh8, rng):
     cfg = NTTConfig(field=field, log_n=13, rows_log2=6, num_shards=8)  # (64, 128)
     a = rng.integers(0, field.p, cfg.n)
     aj = jnp.asarray(a, dtype=jnp.uint32)
-    dist = build_distributed_plan(cfg, mesh8, engine="xla")
+    dist = build_distributed_plan(cfg, mesh8)
 
     n1, n2 = cfg.split
     spec = np.asarray(dist.fwd(dist.shard_input(a)))
@@ -60,7 +75,7 @@ def test_distributed_polymul(mesh8, rng):
     cfg = NTTConfig(field=field, log_n=12, rows_log2=5, num_shards=8)
     a = rng.integers(0, field.p, cfg.n)
     b = rng.integers(0, field.p, cfg.n)
-    dist = build_distributed_plan(cfg, mesh8, engine="xla")
+    dist = build_distributed_plan(cfg, mesh8)
     got = np.asarray(
         dist.polymul(dist.shard_input(a), dist.shard_input(b))
     ).reshape(-1)
@@ -73,7 +88,7 @@ def test_distributed_montgomery_field(mesh8, rng):
     cfg = NTTConfig(field=field, log_n=12, rows_log2=5, num_shards=8)
     a = rng.integers(0, field.p, cfg.n)
     aj = jnp.asarray(a, dtype=jnp.uint32)
-    dist = build_distributed_plan(cfg, mesh8, engine="xla")
+    dist = build_distributed_plan(cfg, mesh8)
     single = build_plan(cfg, engine="xla")
     assert np.array_equal(
         np.asarray(dist.fwd(dist.shard_input(a))).reshape(-1), np.asarray(single.fwd(aj))
@@ -87,8 +102,8 @@ def test_pairwise_stage_matches_butterfly(mesh8, rng):
     P("x") checking per-shard twiddle-SLICE routing (each device multiplies
     by its own position-dependent slice). The full multi-stage composition
     is covered by test_pairwise_full_ntt_matches_oracle."""
-    from ntt_aie_tpu.parallel.fourstep import pairwise_global_stage
-    from ntt_aie_tpu.ops.reductions import make_reduction
+    from ntt_aie.parallel.fourstep import pairwise_global_stage
+    from ntt_aie.ops.reductions import make_reduction
     from jax.sharding import PartitionSpec as P
 
     field = F.P_469762049
@@ -143,7 +158,7 @@ def test_pairwise_stage_matches_butterfly(mesh8, rng):
 
 def test_distributed_2d_mesh_dp_batch(rng):
     """2D mesh: batch sharded over 'dp', coefficients over 'x'."""
-    from ntt_aie_tpu.parallel.mesh import make_mesh_2d
+    from ntt_aie.parallel.mesh import make_mesh_2d
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
@@ -152,7 +167,7 @@ def test_distributed_2d_mesh_dp_batch(rng):
     cfg = NTTConfig(field=field, log_n=12, rows_log2=5, num_shards=4)
     B = 4
     a = rng.integers(0, field.p, (B, cfg.n))
-    dist = build_distributed_plan(cfg, mesh, engine="xla", dp_axis="dp")
+    dist = build_distributed_plan(cfg, mesh, dp_axis="dp")
     single = build_plan(cfg, engine="xla")
     out = np.asarray(dist.fwd(dist.shard_input(a)))
     for i in range(B):
@@ -168,11 +183,11 @@ def test_goldilocks_distributed_fourstep(rng):
     import jax
     from jax.sharding import Mesh
 
-    from ntt_aie_tpu import fields as F
-    from ntt_aie_tpu.api import NTTContext
-    from ntt_aie_tpu.config import NTTConfig
-    from ntt_aie_tpu.ops import modops as M
-    from ntt_aie_tpu.parallel.fourstep import build_gl_distributed_plan
+    from ntt_aie import fields as F
+    from ntt_aie.api import NTTContext
+    from ntt_aie.config import NTTConfig
+    from ntt_aie.ops import modops as M
+    from ntt_aie.parallel.fourstep import build_gl_distributed_plan
 
     GL = F.GOLDILOCKS
     cfg = NTTConfig(field=GL, log_n=10, rows_log2=5, num_shards=4)
@@ -195,7 +210,7 @@ def test_goldilocks_distributed_fourstep(rng):
     b = rng.integers(0, 1 << 63, cfg.n, dtype=np.uint64) % np.uint64(GL.p)
     ch, cl = plan.polymul(plan.shard_input(v), plan.shard_input(b))
     got = M.gl_to_u64(np.asarray(ch).reshape(-1), np.asarray(cl).reshape(-1))
-    from ntt_aie_tpu import reference as ref
+    from ntt_aie import reference as ref
     want_p = ref.schoolbook_cyclic(v.astype(object), b.astype(object), GL.p)
     assert np.array_equal(got.astype(object), want_p.astype(object))
 
@@ -203,7 +218,7 @@ def test_goldilocks_distributed_fourstep(rng):
 def test_pairwise_full_ntt_matches_oracle(mesh8, rng):
     """The complete reference-topology mode: log2(D) pairwise exchange
     stages + local stages == the scalar DIF oracle, bit-exact."""
-    from ntt_aie_tpu.parallel.fourstep import build_pairwise_plan
+    from ntt_aie.parallel.fourstep import build_pairwise_plan
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=10, num_shards=8)
@@ -222,8 +237,8 @@ def test_overlap_chunked_transpose_bit_exact(mesh8, rng, chunks):
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=13, rows_log2=6, num_shards=8)  # (64, 128)
     a = rng.integers(0, field.p, cfg.n)
-    mono = build_distributed_plan(cfg, mesh8, engine="xla")
-    over = build_distributed_plan(cfg, mesh8, engine="xla",
+    mono = build_distributed_plan(cfg, mesh8)
+    over = build_distributed_plan(cfg, mesh8,
                                   overlap_chunks=chunks)
     single = build_plan(cfg, engine="xla")
 
@@ -244,37 +259,6 @@ def test_overlap_chunked_transpose_bit_exact(mesh8, rng, chunks):
     assert np.array_equal(got_p.astype(np.int64), want_p)
 
 
-def test_overlap_chunked_pallas_interpret(mesh8, rng):
-    """Chunked overlap with the pallas local-pass engine (interpret mode):
-    the per-chunk pass-2 colpasses compose bit-exactly."""
-    field = F.P_469762049
-    cfg = NTTConfig(field=field, log_n=12, rows_log2=5, num_shards=8)  # (32,128)
-    a = rng.integers(0, field.p, cfg.n)
-    d_x = build_distributed_plan(cfg, mesh8, engine="xla")
-    d_p = build_distributed_plan(cfg, mesh8, engine="pallas", interpret=True,
-                                 overlap_chunks=2)
-    got_x = np.asarray(d_x.fwd(d_x.shard_input(a))).reshape(-1)
-    got_p = np.asarray(d_p.fwd(d_p.shard_input(a))).reshape(-1)
-    assert np.array_equal(got_x, got_p)
-    back = np.asarray(d_p.inv(d_p.fwd(d_p.shard_input(a)))).reshape(-1)
-    assert np.array_equal(back, a)
-
-
-def test_distributed_pallas_engine_interpret(mesh8, rng):
-    """The pallas local passes inside shard_map (interpret mode): bit-exact
-    vs the xla-engine distributed plan."""
-    field = F.P_469762049
-    cfg = NTTConfig(field=field, log_n=11, rows_log2=4, num_shards=8)  # (16,128)
-    a = rng.integers(0, field.p, cfg.n)
-    d_x = build_distributed_plan(cfg, mesh8, engine="xla")
-    d_p = build_distributed_plan(cfg, mesh8, engine="pallas", interpret=True)
-    got_x = np.asarray(d_x.fwd(d_x.shard_input(a))).reshape(-1)
-    got_p = np.asarray(d_p.fwd(d_p.shard_input(a))).reshape(-1)
-    assert np.array_equal(got_x, got_p)
-    back = np.asarray(d_p.inv(d_p.fwd(d_p.shard_input(a)))).reshape(-1)
-    assert np.array_equal(back, a)
-
-
 def test_distributed_negacyclic_polymul(mesh8, rng):
     """X^n + 1 product on the distributed plan (psi pre-scale fused into
     pass 1, psi^-1 post-scale fused into the last inverse pass) vs the
@@ -286,7 +270,7 @@ def test_distributed_negacyclic_polymul(mesh8, rng):
     b = rng.integers(0, field.p, cfg.n)
     want = ref.schoolbook_negacyclic(a, b, field.p)
     for C in (1, 2):
-        plan = build_distributed_plan(cfg, mesh8, engine="xla",
+        plan = build_distributed_plan(cfg, mesh8,
                                       overlap_chunks=C)
         got = np.asarray(plan.negacyclic_polymul(
             plan.shard_input(a), plan.shard_input(b))).reshape(-1)
@@ -294,13 +278,13 @@ def test_distributed_negacyclic_polymul(mesh8, rng):
     # non-negacyclic plans expose no negacyclic_polymul
     plain = build_distributed_plan(
         NTTConfig(field=field, log_n=12, rows_log2=5, num_shards=8),
-        mesh8, engine="xla")
+        mesh8)
     assert plain.negacyclic_polymul is None
 
     fm = F.P_2013265921
     cfgm = NTTConfig(field=fm, log_n=12, rows_log2=5, num_shards=8,
                      negacyclic=True)
-    planm = build_distributed_plan(cfgm, mesh8, engine="xla")
+    planm = build_distributed_plan(cfgm, mesh8)
     am = rng.integers(0, fm.p, cfgm.n)
     bm = rng.integers(0, fm.p, cfgm.n)
     gotm = np.asarray(planm.negacyclic_polymul(
@@ -309,29 +293,14 @@ def test_distributed_negacyclic_polymul(mesh8, rng):
                           ref.schoolbook_negacyclic(am, bm, fm.p))
 
 
-def test_distributed_negacyclic_pallas_interpret(mesh8, rng):
-    """Negacyclic distributed plan through the pallas engine (interpret):
-    the twiddle_pos2 psi fusion composes with the colpass wmat."""
-    field = F.P_469762049
-    cfg = NTTConfig(field=field, log_n=11, rows_log2=4, num_shards=8,
-                    negacyclic=True)
-    plan = build_distributed_plan(cfg, mesh8, engine="pallas", interpret=True)
-    a = rng.integers(0, field.p, cfg.n)
-    b = rng.integers(0, field.p, cfg.n)
-    got = np.asarray(plan.negacyclic_polymul(
-        plan.shard_input(a), plan.shard_input(b))).reshape(-1)
-    assert np.array_equal(got.astype(np.int64),
-                          ref.schoolbook_negacyclic(a, b, field.p))
-
-
 def test_goldilocks_distributed_overlap_and_negacyclic(rng):
     """GL distributed plan: chunked-overlap transpose is bit-identical to
     monolithic, and the negacyclic product matches the schoolbook oracle
     (object-int) in both modes."""
     from jax.sharding import Mesh
 
-    from ntt_aie_tpu.ops import modops as M
-    from ntt_aie_tpu.parallel.fourstep import build_gl_distributed_plan
+    from ntt_aie.ops import modops as M
+    from ntt_aie.parallel.fourstep import build_gl_distributed_plan
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
@@ -359,8 +328,7 @@ def test_goldilocks_distributed_overlap_and_negacyclic(rng):
         assert np.array_equal(got.astype(object), want.astype(object))
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
-def test_distributed_wmat_factored_matches_full(mesh8, rng, engine):
+def test_distributed_wmat_factored_matches_full(mesh8, rng):
     """wmat_factored distributed plans (sqrt-size twiddle tables riding
     pass 2, on the far side of the transpose collective) are bit-identical
     to the full-matrix plans: fwd, inverse roundtrip, polymul — monolithic
@@ -369,9 +337,7 @@ def test_distributed_wmat_factored_matches_full(mesh8, rng, engine):
     cfg = NTTConfig(field=field, log_n=12, rows_log2=5, num_shards=8)
     a = rng.integers(0, field.p, cfg.n)
     b = rng.integers(0, field.p, cfg.n)
-    kwargs = dict(engine=engine)
-    if engine == "pallas":
-        kwargs["interpret"] = True
+    kwargs = {}
     # wmat_factored=False: the distributed default flipped to factored in
     # round 4, so the full-matrix comparison side must ask for it.
     full = build_distributed_plan(cfg, mesh8, wmat_factored=False, **kwargs)
@@ -402,19 +368,16 @@ def test_distributed_wmat_factored_negacyclic_and_montgomery(mesh8, rng):
     a = rng.integers(0, field.p, cfg.n)
     b = rng.integers(0, field.p, cfg.n)
     want = ref.schoolbook_negacyclic(a, b, field.p)
-    for engine in ("xla", "pallas"):
-        kw = dict(interpret=True) if engine == "pallas" else {}
-        plan = build_distributed_plan(cfg, mesh8, engine=engine,
-                                      wmat_factored=True, **kw)
-        got = np.asarray(plan.negacyclic_polymul(
-            plan.shard_input(a), plan.shard_input(b))).reshape(-1)
-        assert np.array_equal(got.astype(np.int64), want), engine
+    plan = build_distributed_plan(cfg, mesh8, wmat_factored=True)
+    got = np.asarray(plan.negacyclic_polymul(
+        plan.shard_input(a), plan.shard_input(b))).reshape(-1)
+    assert np.array_equal(got.astype(np.int64), want)
 
     fm = F.P_2013265921
     cfgm = NTTConfig(field=fm, log_n=12, rows_log2=5, num_shards=8)
     am = rng.integers(0, fm.p, cfgm.n)
     bm = rng.integers(0, fm.p, cfgm.n)
-    planm = build_distributed_plan(cfgm, mesh8, engine="xla",
+    planm = build_distributed_plan(cfgm, mesh8,
                                    wmat_factored=True)
     gotm = np.asarray(planm.polymul(planm.shard_input(am),
                                     planm.shard_input(bm))).reshape(-1)
@@ -426,12 +389,12 @@ def test_nttcontext_distributed(mesh8, rng):
     """NTTContext(config, mesh=...) drives the distributed plan through
     the single-chip API surface: flat host vectors are placed
     automatically, sharded device arrays pass through."""
-    from ntt_aie_tpu.api import NTTContext
+    from ntt_aie.api import NTTContext
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=12, rows_log2=5, num_shards=8,
                     negacyclic=True)
-    ctx = NTTContext(cfg, mesh=mesh8, engine="xla", wmat_factored=True,
+    ctx = NTTContext(cfg, mesh=mesh8, wmat_factored=True,
                      overlap_chunks=2)
     a = rng.integers(0, field.p, cfg.n)
     b = rng.integers(0, field.p, cfg.n)
@@ -462,12 +425,12 @@ def test_nttcontext_distributed_ordering(mesh8, rng):
     single-chip wrappers (CLAUDE.md invariant): ordering='natural' returns
     and accepts flat natural-order vectors; the reference parity
     conventions are single-chip-only and raise loudly."""
-    from ntt_aie_tpu.api import NTTContext
+    from ntt_aie.api import NTTContext
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=12, rows_log2=5, num_shards=8,
                     ordering="natural")
-    ctx = NTTContext(cfg, mesh=mesh8, engine="xla")
+    ctx = NTTContext(cfg, mesh=mesh8)
     a = rng.integers(0, field.p, cfg.n)
     spec = np.asarray(ctx.forward(a))
     assert spec.shape == (cfg.n,)
@@ -481,7 +444,7 @@ def test_nttcontext_distributed_ordering(mesh8, rng):
         NTTContext(NTTConfig(field=F.KYBER, log_n=11,
                              table_convention="reference"), mesh=mesh8)
     with pytest.raises(NotImplementedError):
-        NTTContext(cfg, mesh=mesh8, engine="xla", dp_axis="dp")
+        NTTContext(cfg, mesh=mesh8, dp_axis="dp")
 
 
 def test_nttcontext_distributed_goldilocks(mesh8, rng):
@@ -490,7 +453,7 @@ def test_nttcontext_distributed_goldilocks(mesh8, rng):
     uint64 host vectors are split/placed automatically (and returned as
     uint64), device limb pairs pass through, and config.ordering is
     honored."""
-    from ntt_aie_tpu.api import NTTContext
+    from ntt_aie.api import NTTContext
 
     GL = F.GOLDILOCKS
     cfg = NTTConfig(field=GL, log_n=10, rows_log2=5, num_shards=8,
@@ -536,9 +499,9 @@ def test_goldilocks_distributed_dp_axis(rng):
     single-chip GL plan per batch row, plus roundtrip and negacyclic."""
     import jax
 
-    from ntt_aie_tpu.parallel.fourstep import build_gl_distributed_plan
-    from ntt_aie_tpu.parallel.mesh import make_mesh_2d
-    from ntt_aie_tpu.plan import build_plan
+    from ntt_aie.parallel.fourstep import build_gl_distributed_plan
+    from ntt_aie.parallel.mesh import make_mesh_2d
+    from ntt_aie.plan import build_plan
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
@@ -579,17 +542,17 @@ def test_hierarchical_transpose_bit_exact(rng):
     an asymmetric (4, 2) grid, and composition with overlap_chunks."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from ntt_aie_tpu.parallel.mesh import make_mesh_hier
+    from ntt_aie.parallel.mesh import make_mesh_hier
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=13, rows_log2=6, num_shards=8)  # (64,128)
     a = rng.integers(0, field.p, cfg.n)
-    flat = build_distributed_plan(cfg, make_mesh(8), engine="xla")
+    flat = build_distributed_plan(cfg, make_mesh(8))
     want = np.asarray(flat.fwd(flat.shard_input(a))).reshape(-1)
 
     for G, L in ((2, 4), (4, 2)):
         mesh = make_mesh_hier(G, L)
-        hier = build_distributed_plan(cfg, mesh, engine="xla",
+        hier = build_distributed_plan(cfg, mesh,
                                       hier_axes=("dcn", "ici"))
         spec = hier.fwd(hier.shard_input(a))
         assert np.array_equal(np.asarray(spec).reshape(-1), want), (G, L)
@@ -598,7 +561,7 @@ def test_hierarchical_transpose_bit_exact(rng):
 
     # hier + chunked overlap compose: each chunk's collective decomposes
     mesh = make_mesh_hier(2, 4)
-    hc = build_distributed_plan(cfg, mesh, engine="xla",
+    hc = build_distributed_plan(cfg, mesh,
                                 hier_axes=("dcn", "ici"), overlap_chunks=2)
     assert np.array_equal(np.asarray(hc.fwd(hc.shard_input(a))).reshape(-1),
                           want)
@@ -611,19 +574,19 @@ def test_hierarchical_negacyclic_and_wfac(rng):
     psi rank-1 operands and wfac lane shards ride the two-level specs."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from ntt_aie_tpu.parallel.mesh import make_mesh_hier
+    from ntt_aie.parallel.mesh import make_mesh_hier
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=12, rows_log2=5, num_shards=8,
                     negacyclic=True)
     a = rng.integers(0, field.p, cfg.n)
     b = rng.integers(0, field.p, cfg.n)
-    flat = build_distributed_plan(cfg, make_mesh(8), engine="xla")
+    flat = build_distributed_plan(cfg, make_mesh(8))
     want = np.asarray(
         flat.negacyclic_polymul(flat.shard_input(a), flat.shard_input(b))
     ).reshape(-1)
     mesh = make_mesh_hier(2, 4)
-    hier = build_distributed_plan(cfg, mesh, engine="xla",
+    hier = build_distributed_plan(cfg, mesh,
                                   hier_axes=("dcn", "ici"),
                                   wmat_factored=True)
     got = np.asarray(
@@ -636,8 +599,8 @@ def test_goldilocks_hierarchical(rng):
     """GL limb-pair plan over a hierarchical mesh == flat GL plan."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from ntt_aie_tpu.parallel.fourstep import build_gl_distributed_plan
-    from ntt_aie_tpu.parallel.mesh import make_mesh_hier
+    from ntt_aie.parallel.fourstep import build_gl_distributed_plan
+    from ntt_aie.parallel.mesh import make_mesh_hier
 
     GL = F.GOLDILOCKS
     cfg = NTTConfig(field=GL, log_n=12, rows_log2=6, num_shards=8)
@@ -671,7 +634,7 @@ def test_hierarchical_with_dp_batch(rng):
     cfg = NTTConfig(field=field, log_n=12, rows_log2=6, num_shards=4)  # (64,64)
     B = 4
     ab = rng.integers(0, field.p, (B, cfg.n))
-    dist = build_distributed_plan(cfg, mesh, engine="xla", dp_axis="dp",
+    dist = build_distributed_plan(cfg, mesh, dp_axis="dp",
                                   hier_axes=("dcn", "ici"))
     single = build_plan(cfg, engine="xla")
     got = np.asarray(dist.fwd(dist.shard_input(ab)))
@@ -687,8 +650,8 @@ def test_goldilocks_hier_through_nttcontext(rng):
     builder too (the kwargs allowlist once rejected it)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from ntt_aie_tpu.api import NTTContext
-    from ntt_aie_tpu.parallel.mesh import make_mesh_hier
+    from ntt_aie.api import NTTContext
+    from ntt_aie.parallel.mesh import make_mesh_hier
 
     GL = F.GOLDILOCKS
     cfg = NTTConfig(field=GL, log_n=12, rows_log2=6, num_shards=8)
@@ -709,16 +672,16 @@ def test_dp_batched_overlap_chunks(rng):
         pytest.skip("needs 8 devices")
     from jax.sharding import Mesh
 
-    from ntt_aie_tpu.parallel.fourstep import build_gl_distributed_plan
-    from ntt_aie_tpu.parallel.mesh import make_mesh_2d
+    from ntt_aie.parallel.fourstep import build_gl_distributed_plan
+    from ntt_aie.parallel.mesh import make_mesh_2d
 
     field = F.P_469762049
     mesh = make_mesh_2d(2, 4)
     cfg = NTTConfig(field=field, log_n=12, rows_log2=6, num_shards=4)  # (64,64)
     B = 4
     ab = rng.integers(0, field.p, (B, cfg.n))
-    mono = build_distributed_plan(cfg, mesh, engine="xla", dp_axis="dp")
-    chk = build_distributed_plan(cfg, mesh, engine="xla", dp_axis="dp",
+    mono = build_distributed_plan(cfg, mesh, dp_axis="dp")
+    chk = build_distributed_plan(cfg, mesh, dp_axis="dp",
                                  overlap_chunks=2)
     want = np.asarray(mono.fwd(mono.shard_input(ab)))
     spec = chk.fwd(chk.shard_input(ab))
@@ -729,7 +692,7 @@ def test_dp_batched_overlap_chunks(rng):
     # 3-axis: dp x (dcn x ici) with chunks
     devs = np.array(jax.devices()[:8]).reshape(2, 2, 2)
     mesh3 = Mesh(devs, ("dp", "dcn", "ici"))
-    h3 = build_distributed_plan(cfg, mesh3, engine="xla", dp_axis="dp",
+    h3 = build_distributed_plan(cfg, mesh3, dp_axis="dp",
                                 hier_axes=("dcn", "ici"), overlap_chunks=2)
     assert np.array_equal(np.asarray(h3.fwd(h3.shard_input(ab))), want)
 
@@ -766,7 +729,7 @@ def test_compiled_collective_structure(rng):
     duplicating the collective schedule."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from ntt_aie_tpu.parallel.mesh import make_mesh_hier
+    from ntt_aie.parallel.mesh import make_mesh_hier
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=12, rows_log2=6, num_shards=8)
@@ -777,119 +740,30 @@ def test_compiled_collective_structure(rng):
         txt = plan.fwd.lower(x).compile().as_text()
         return txt.count("all-to-all(") + txt.count("all-to-all-start(")
 
-    flat = build_distributed_plan(cfg, make_mesh(8), engine="xla")
+    flat = build_distributed_plan(cfg, make_mesh(8))
     assert a2a_count(flat) == 1
-    chunked = build_distributed_plan(cfg, make_mesh(8), engine="xla",
+    chunked = build_distributed_plan(cfg, make_mesh(8),
                                      overlap_chunks=2)
     assert a2a_count(chunked) == 2
-    hier = build_distributed_plan(cfg, make_mesh_hier(2, 4), engine="xla",
+    hier = build_distributed_plan(cfg, make_mesh_hier(2, 4),
                                   hier_axes=("dcn", "ici"))
     assert a2a_count(hier) == 2
-    hier_c = build_distributed_plan(cfg, make_mesh_hier(2, 4), engine="xla",
+    hier_c = build_distributed_plan(cfg, make_mesh_hier(2, 4),
                                     hier_axes=("dcn", "ici"),
                                     overlap_chunks=2)
     assert a2a_count(hier_c) == 4
 
 
-def test_hierarchical_pallas_engine_interpret(rng):
-    """hier transpose composed with the Pallas local-pass engine
-    (interpret mode on CPU): same bits as the flat xla plan."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
-    from ntt_aie_tpu.parallel.mesh import make_mesh_hier
-
-    field = F.P_469762049
-    cfg = NTTConfig(field=field, log_n=11, rows_log2=4, num_shards=8)  # (16,128)
-    a = rng.integers(0, field.p, cfg.n)
-    flat = build_distributed_plan(cfg, make_mesh(8), engine="xla")
-    want = np.asarray(flat.fwd(flat.shard_input(a))).reshape(-1)
-    hier = build_distributed_plan(cfg, make_mesh_hier(2, 4), engine="pallas",
-                                  interpret=True, hier_axes=("dcn", "ici"))
-    got = np.asarray(hier.fwd(hier.shard_input(a))).reshape(-1)
-    assert np.array_equal(got, want)
-
-
-def test_goldilocks_distributed_pallas_engine(rng):
-    """GL distributed plan, engine='pallas' (fused limb kernels inside
-    shard_map, interpret mode): fwd/inv/negacyclic bit-identical to the
-    XLA engine, and composed with overlap_chunks + hier_axes. VERDICT r2
-    next #2 — SURVEY §7 hard part 1 at 64 bits, scaled out."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
-    from ntt_aie_tpu.parallel.fourstep import build_gl_distributed_plan
-    from ntt_aie_tpu.parallel.mesh import make_mesh_hier
-
-    GL = F.GOLDILOCKS
-    cfg = NTTConfig(field=GL, log_n=12, rows_log2=6, num_shards=8,
-                    negacyclic=True)
-    a = rng.integers(0, GL.p, cfg.n, dtype=np.uint64)
-    b = rng.integers(0, GL.p, cfg.n, dtype=np.uint64)
-
-    def u64(pair):
-        h, lo = (np.asarray(x) for x in pair)
-        return (h.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-
-    ref_plan = build_gl_distributed_plan(cfg, make_mesh(8), engine="xla")
-    want_fwd = u64(ref_plan.fwd(ref_plan.shard_input(a)))
-    want_neg = u64(ref_plan.negacyclic_polymul(ref_plan.shard_input(a),
-                                               ref_plan.shard_input(b)))
-
-    pal = build_gl_distributed_plan(cfg, make_mesh(8), engine="pallas",
-                                    interpret=True)
-    out = pal.fwd(pal.shard_input(a))
-    assert np.array_equal(u64(out), want_fwd)
-    assert np.array_equal(u64(pal.inv(out)).reshape(-1), a)
-    assert np.array_equal(
-        u64(pal.negacyclic_polymul(pal.shard_input(a), pal.shard_input(b))),
-        want_neg)
-
-    hier = build_gl_distributed_plan(
-        cfg, make_mesh_hier(2, 4), engine="pallas", interpret=True,
-        hier_axes=("dcn", "ici"), overlap_chunks=2)
-    assert np.array_equal(u64(hier.fwd(hier.shard_input(a))), want_fwd)
-
-
-def test_goldilocks_distributed_pallas_dp_batch(rng):
-    """GL pallas engine under a dp x coeff 2D mesh (vmapped limb kernels):
-    bit-identical to the XLA engine per batch row."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
-    from ntt_aie_tpu.parallel.fourstep import build_gl_distributed_plan
-    from ntt_aie_tpu.parallel.mesh import make_mesh_2d
-
-    GL = F.GOLDILOCKS
-    cfg = NTTConfig(field=GL, log_n=12, rows_log2=6, num_shards=4)
-    B = 4
-    ab = rng.integers(0, GL.p, (B, cfg.n), dtype=np.uint64)
-
-    def u64(pair):
-        h, lo = (np.asarray(x) for x in pair)
-        return (h.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-
-    mesh = make_mesh_2d(2, 4)
-    kw = dict(dp_axis="dp", overlap_chunks=2)
-    xla = build_gl_distributed_plan(cfg, mesh, engine="xla", **kw)
-    want = u64(xla.fwd(xla.shard_input(ab)))
-    pal = build_gl_distributed_plan(cfg, mesh, engine="pallas",
-                                    interpret=True, **kw)
-    out = pal.fwd(pal.shard_input(ab))
-    assert np.array_equal(u64(out), want)
-    assert np.array_equal(u64(pal.inv(out)).reshape(B, -1), ab)
-
-
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
-def test_gl_distributed_wmat_factored_matches_full(mesh8, rng, engine):
+def test_gl_distributed_wmat_factored_matches_full(mesh8, rng):
     """GL distributed factored mode (round 4): sqrt-size limb tables ride
     pass 2 on the far side of the collective; default (None) resolves to
     factored; outputs bit-identical to the full-matrix plan."""
-    from ntt_aie_tpu.ops import modops as M
-    from ntt_aie_tpu.parallel.fourstep import build_gl_distributed_plan
+    from ntt_aie.ops import modops as M
+    from ntt_aie.parallel.fourstep import build_gl_distributed_plan
 
     GLF = F.GOLDILOCKS
     cfg = NTTConfig(field=GLF, log_n=10, rows_log2=5, num_shards=8)
-    kw = dict(engine=engine)
-    if engine == "pallas":
-        kw["interpret"] = True
+    kw = {}
     v = rng.integers(0, 1 << 63, cfg.n, dtype=np.uint64) % np.uint64(GLF.p)
     full = build_gl_distributed_plan(cfg, mesh8, wmat_factored=False, **kw)
     assert not full.wmat_factored
@@ -910,9 +784,9 @@ def test_gl_distributed_wmat_factored_matches_full(mesh8, rng, engine):
 
 def test_gl_distributed_factored_negacyclic(mesh8, rng):
     """GL factored negacyclic: rank-1 psi limb operands vs the schoolbook
-    oracle (xla engine; the pallas rank-1 wiring is covered single-chip)."""
-    from ntt_aie_tpu.ops import modops as M
-    from ntt_aie_tpu.parallel.fourstep import build_gl_distributed_plan
+    oracle."""
+    from ntt_aie.ops import modops as M
+    from ntt_aie.parallel.fourstep import build_gl_distributed_plan
 
     GLF = F.GOLDILOCKS
     cfg = NTTConfig(field=GLF, log_n=8, rows_log2=4, num_shards=8,
@@ -921,7 +795,7 @@ def test_gl_distributed_factored_negacyclic(mesh8, rng):
     b = rng.integers(0, 1 << 63, cfg.n, dtype=np.uint64) % np.uint64(GLF.p)
     want = ref.schoolbook_negacyclic(a.astype(object), b.astype(object),
                                      GLF.p)
-    plan = build_gl_distributed_plan(cfg, mesh8, engine="xla",
+    plan = build_gl_distributed_plan(cfg, mesh8,
                                      wmat_factored=True)
     ch, cl = plan.negacyclic_polymul(plan.shard_input(a),
                                      plan.shard_input(b))

@@ -12,8 +12,8 @@ import re
 
 import pytest
 
-from ntt_aie_tpu.config import NTTConfig
-from ntt_aie_tpu.fields import P_469762049
+from ntt_aie.config import NTTConfig
+from ntt_aie.fields import P_469762049
 
 API_MD = pathlib.Path(__file__).resolve().parent.parent / "docs" / "API.md"
 
@@ -51,33 +51,3 @@ def test_documented_reductions_are_all_accepted():
     assert "auto" in documented
     for r in documented - {"goldilocks"}:
         NTTConfig(field=P_469762049, log_n=8, reduction=r)  # must not raise
-
-
-def test_readme_perf_rows_match_committed_artifacts():
-    """Round-5 drift guard (VERDICT r4 #2): the README performance
-    table's key numbers must equal the committed measurement artifacts —
-    the headline bench line and the regenerated sweep summaries — so the
-    committed prose can't silently lag the shipped code again."""
-    import csv
-    import json
-
-    root = API_MD.parent.parent
-    readme = (root / "README.md").read_text()
-
-    head = json.loads((root / "profile/bench_headline_r5.json").read_text())
-    assert f"**{round(head['value']):,} NTT/s**" in readme
-    assert f"{round(head['flat_value']):,}" in readme
-    assert f"**{round(head['vs_baseline'])}×**" in readme
-
-    with open(root / "profile/exectime/summary_goldilocks.csv") as f:
-        gl = {(r["log_n"], r["batch"]): r for r in csv.DictReader(f)}
-    cell = gl[("20", "64")]
-    assert f"**{round(float(cell['us_per_ntt']))} µs/NTT flat" in readme
-    assert f"{round(float(cell['mat_us_per_ntt']))} matrix-form" in readme
-
-    with open(root / "profile/exectime/summary_p469762049.csv") as f:
-        p4 = {(r["log_n"], r["batch"]): r for r in csv.DictReader(f)}
-    rates = [float(p4[(str(ln), "128")]["ntts_per_sec"])
-             for ln in range(14, 18)]
-    lo, hi = round(min(rates) / 1000), round(max(rates) / 1000)
-    assert f"| {lo}k–{hi}k NTT/s |" in readme

@@ -2,7 +2,7 @@
 
 import pytest
 
-from ntt_aie_tpu import fields as F
+from ntt_aie import fields as F
 
 
 def test_shipped_generators_are_primitive():

@@ -1,5 +1,5 @@
 """Seeded fuzz over the config space: every sampled (field, log_n, split,
-ordering, engine) must roundtrip and match the oracle. The reference tests
+ordering) must roundtrip and match the oracle. The reference tests
 exactly one configuration on real hardware (SURVEY.md §4); this sweeps the
 plan builder's whole parameter space in CI."""
 
@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from ntt_aie_tpu import fields as F
-from ntt_aie_tpu import reference as ref
-from ntt_aie_tpu.config import NTTConfig
-from ntt_aie_tpu.plan import build_plan
+from ntt_aie import fields as F
+from ntt_aie import reference as ref
+from ntt_aie.config import NTTConfig
+from ntt_aie.plan import build_plan
 
 FIELDS = [F.DILITHIUM, F.P_998244353, F.P_2013265921, F.P_469762049]
 
@@ -22,7 +22,7 @@ def _cases():
         log_n = int(rng.integers(4, 13))
         rows_log2 = int(rng.integers(1, log_n)) if rng.random() < 0.7 else None
         ordering = ["bitrev", "natural"][rng.integers(0, 2)]
-        engine = ["xla", "pallas"][rng.integers(0, 2)]
+        rng.integers(0, 2)  # keeps the case stream of earlier versions
         # explicit reduction override ~1/3 of the time (else 'auto',
         # which now resolves harvey4 for p < 2^29)
         red = "auto"
@@ -33,34 +33,20 @@ def _cases():
             if field.p < (1 << 29) and field.p % 2 == 1:
                 opts.append("harvey4")
             red = opts[rng.integers(0, len(opts))]
-        # factored four-step twiddles ~1/3 of the time (pallas four-step
-        # only; silently full-matrix elsewhere, which is also worth fuzzing)
-        wfac = bool(rng.random() < 0.33)
-        # wmat_fold defaults True since round 5; force the entry
-        # placement ~1/3 of the time so BOTH placements stay fuzzed
-        nofold = bool(rng.random() < 0.33)
-        yield pytest.param(field, log_n, rows_log2, ordering, engine, red,
-                           wfac, nofold,
+        rng.random(), rng.random()  # (as above)
+        yield pytest.param(field, log_n, rows_log2, ordering, red,
                            id=f"{i}-{field.name}-n{log_n}-r{rows_log2}-"
-                              f"{ordering}-{engine}-{red}"
-                              f"{'-wfac' if wfac else ''}"
-                              f"{'-nofold' if nofold else ''}")
+                              f"{ordering}-{red}")
 
 
 @pytest.mark.parametrize(
-    "field,log_n,rows_log2,ordering,engine,red,wfac,nofold", _cases())
-def test_fuzzed_config(field, log_n, rows_log2, ordering, engine, red,
-                       wfac, nofold, rng):
+    "field,log_n,rows_log2,ordering,red", _cases())
+def test_fuzzed_config(field, log_n, rows_log2, ordering, red, rng):
     if (1 << log_n) > field.max_n:
         pytest.skip("n exceeds field")
     cfg = NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2,
                     ordering=ordering, reduction=red)
-    n2 = cfg.split[1]
-    if engine == "pallas" and n2 == 1:
-        engine = "xla"  # flat path has no pallas kernels
-    plan = build_plan(cfg, engine=engine, interpret=(engine == "pallas"),
-                      wmat_factored=wfac or None,
-                      wmat_fold=False if nofold else None)
+    plan = build_plan(cfg)
     a = rng.integers(0, field.p, cfg.n)
     aj = jnp.asarray(a, dtype=jnp.uint32)
     flat = np.asarray(plan.fwd(aj))
@@ -111,8 +97,8 @@ def test_fuzzed_distributed_config(field, log_n, hier, chunks, wfac, nega,
         pytest.skip("needs 8 devices")
     if (1 << log_n) > field.max_n:
         pytest.skip("n exceeds field")
-    from ntt_aie_tpu.parallel.fourstep import build_distributed_plan
-    from ntt_aie_tpu.parallel.mesh import make_mesh, make_mesh_hier
+    from ntt_aie.parallel.fourstep import build_distributed_plan
+    from ntt_aie.parallel.mesh import make_mesh, make_mesh_hier
 
     D = 8
     rows_log2 = max(log_n // 2, 4)  # n1, n2 >= 16 both divide D
@@ -124,10 +110,10 @@ def test_fuzzed_distributed_config(field, log_n, hier, chunks, wfac, nega,
         chunks = 1
     mesh = make_mesh_hier(2, 4) if hier else make_mesh(D)
     dist = build_distributed_plan(
-        cfg, mesh, engine="xla", overlap_chunks=chunks,
+        cfg, mesh, overlap_chunks=chunks,
         wmat_factored=wfac or None,
         hier_axes=("dcn", "ici") if hier else None)
-    single = build_plan(cfg, engine="xla")
+    single = build_plan(cfg)
     a = rng.integers(0, field.p, cfg.n)
     aj = jnp.asarray(a, dtype=jnp.uint32)
     got = np.asarray(dist.fwd(dist.shard_input(a))).reshape(-1)

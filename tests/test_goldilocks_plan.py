@@ -5,10 +5,10 @@ Bit-exact vs the object-int NumPy oracle."""
 import numpy as np
 import pytest
 
-from ntt_aie_tpu import fields as F
-from ntt_aie_tpu import reference as ref
-from ntt_aie_tpu.config import NTTConfig
-from ntt_aie_tpu.api import NTTContext
+from ntt_aie import fields as F
+from ntt_aie import reference as ref
+from ntt_aie.config import NTTConfig
+from ntt_aie.api import NTTContext
 
 GL = F.GOLDILOCKS
 
@@ -60,7 +60,7 @@ def test_roundtrip_and_natural_ordering(rng):
 def test_limb_tuple_interface(rng):
     """Device-resident form: (hi, lo) tuples in, tuples out."""
     import jax.numpy as jnp
-    from ntt_aie_tpu.ops import modops as M
+    from ntt_aie.ops import modops as M
 
     cfg = NTTConfig(field=GL, log_n=8)
     ctx = NTTContext(cfg)
@@ -113,28 +113,11 @@ def test_polymul_with_natural_ordering(rng):
     assert np.array_equal(got.astype(object), want.astype(object))
 
 
-def test_pallas_gl_engine_matches_xla(rng):
-    """Fused Pallas limb kernels (interpret mode) vs the XLA limb loops."""
-    from ntt_aie_tpu.goldilocks_plan import build_goldilocks_plan
-
-    cfg = NTTConfig(field=GL, log_n=10, rows_log2=4)  # (16, 64)
-    a = _rand(rng, cfg.n)
-    plan_x = build_goldilocks_plan(cfg, engine="xla")
-    plan_p = build_goldilocks_plan(cfg, engine="pallas", interpret=True)
-    fx = np.asarray(plan_x.fwd(a))
-    fp = np.asarray(plan_p.fwd(a))
-    assert np.array_equal(fx, fp)
-    assert np.array_equal(np.asarray(plan_p.inv(fp)), a)
-    b = _rand(rng, cfg.n)
-    assert np.array_equal(np.asarray(plan_x.polymul(a, b)),
-                          np.asarray(plan_p.polymul(a, b)))
-
-
 def test_pallas_gl_batched_matches_single(rng):
-    from ntt_aie_tpu.goldilocks_plan import build_goldilocks_plan
+    from ntt_aie.goldilocks_plan import build_goldilocks_plan
 
     cfg = NTTConfig(field=GL, log_n=9, rows_log2=4)
-    plan = build_goldilocks_plan(cfg, engine="pallas", interpret=True)
+    plan = build_goldilocks_plan(cfg)
     B = 2
     a = np.stack([_rand(rng, cfg.n) for _ in range(B)])
     got = np.asarray(plan.make_batched(B)["fwd"](a))
@@ -145,32 +128,13 @@ def test_pallas_gl_batched_matches_single(rng):
 
 
 def test_gl_batched_honors_natural_ordering(rng):
-    from ntt_aie_tpu.goldilocks_plan import build_goldilocks_plan
+    from ntt_aie.goldilocks_plan import build_goldilocks_plan
 
     cfg = NTTConfig(field=GL, log_n=8, ordering="natural")
     plan = build_goldilocks_plan(cfg, engine="xla")
     a = _rand(rng, cfg.n)
     got = np.asarray(plan.make_batched(1)["fwd"](a[None]))
     assert np.array_equal(got[0], np.asarray(plan.fwd(a)))
-
-
-def test_gl_fused_recursion_interpret(rng):
-    """Explicit coverage of the fused radix-2^K GL recursion (fuse=3) at a
-    tiny size (interpret default is radix-2 for speed)."""
-    from ntt_aie_tpu.ops.pallas_gl import make_gl_colpass
-    from ntt_aie_tpu.ops import modops as M
-    from ntt_aie_tpu import twiddles as tw
-
-    n1, n2 = 16, 8
-    v = _rand(rng, n1 * n2).reshape(n1, n2)
-    h, l = M.gl_from_u64(v)
-    for d in ("dif", "dit"):
-        fused = make_gl_colpass(GL, n1, n2, direction=d, interpret=True, fuse=3)
-        plain = make_gl_colpass(GL, n1, n2, direction=d, interpret=True, fuse=1)
-        fh, fl = fused(h, l)
-        ph, pl_ = plain(h, l)
-        assert np.array_equal(np.asarray(fh), np.asarray(ph)), d
-        assert np.array_equal(np.asarray(fl), np.asarray(pl_)), d
 
 
 def test_gl_flat_batched_lane_layout(rng):
@@ -189,64 +153,13 @@ def test_gl_flat_batched_lane_layout(rng):
     assert np.array_equal(back, a)
 
 
-def test_gl_colpass_karatsuba_interpret(rng):
-    """mul_impl='karatsuba' colpass == schoolbook colpass bit-exactly."""
-    from ntt_aie_tpu.ops.pallas_gl import make_gl_colpass
-    from ntt_aie_tpu.ops import modops as M
-
-    n1, n2 = 16, 8
-    v = _rand(rng, n1 * n2).reshape(n1, n2)
-    h, l = M.gl_from_u64(v)
-    for d in ("dif", "dit"):
-        kara = make_gl_colpass(GL, n1, n2, direction=d, interpret=True,
-                               mul_impl="karatsuba")
-        school = make_gl_colpass(GL, n1, n2, direction=d, interpret=True)
-        kh, kl = kara(h, l)
-        sh, sl = school(h, l)
-        assert np.array_equal(np.asarray(kh), np.asarray(sh)), d
-        assert np.array_equal(np.asarray(kl), np.asarray(sl)), d
-
-
-def test_gl_wmat_factored_matches_full_interpret(rng):
-    """GL factored-twiddle plans (round 4: sqrt-size limb tables riding
-    pass 2) are bit-identical to the full-matrix plans — fwd, inverse
-    roundtrip, polymul — and record the mode on the Plan."""
-    from ntt_aie_tpu.goldilocks_plan import build_goldilocks_plan
-
-    cfg = NTTConfig(field=GL, log_n=10, rows_log2=4)  # (16, 64)
-    a = _rand(rng, cfg.n)
-    b = _rand(rng, cfg.n)
-    full = build_goldilocks_plan(cfg, engine="pallas", interpret=True,
-                                 wmat_factored=False)
-    fac = build_goldilocks_plan(cfg, engine="pallas", interpret=True,
-                                wmat_factored=True)
-    assert fac.wmat_factored and not full.wmat_factored
-    # xla engine silently downgrades (factored is a pallas kernel mode)
-    assert not build_goldilocks_plan(cfg, engine="xla",
-                                     wmat_factored=True).wmat_factored
-    want = np.asarray(full.fwd(a))
-    got = np.asarray(fac.fwd(a))
-    assert np.array_equal(got, want)
-    assert np.array_equal(np.asarray(fac.inv(got)), a)
-    assert np.array_equal(np.asarray(fac.polymul(a, b)),
-                          np.asarray(full.polymul(a, b)))
-    # batched kernels share the factored wiring
-    bf = fac.make_batched(2)
-    xs = np.stack([a, b])
-    got_b = np.asarray(bf["fwd"](xs))
-    want_b = np.stack([want, np.asarray(full.fwd(b))])
-    assert np.array_equal(got_b, want_b)
-    assert np.array_equal(np.asarray(bf["inv"](got_b)), xs)
-
-
 def test_gl_matrix_form_callables(rng):
     """GL matrix-form batched callables match the flat contract under
-    row-major (un)flattening (plan.py layout contract; GL pays the flat
-    boundary retile once per limb plane, so the skip matters double)."""
-    from ntt_aie_tpu.goldilocks_plan import build_goldilocks_plan
+    row-major (un)flattening (plan.py layout contract)."""
+    from ntt_aie.goldilocks_plan import build_goldilocks_plan
 
     cfg = NTTConfig(field=GL, log_n=9, rows_log2=4)
-    plan = build_goldilocks_plan(cfg, engine="pallas", interpret=True)
+    plan = build_goldilocks_plan(cfg)
     n1, n2 = cfg.split
     B = 2
     bat = plan.make_batched(B)
@@ -269,13 +182,13 @@ def test_gl_matrix_form_callables(rng):
 
 
 def test_gl_unbatched_matrix_form_twins(rng):
-    """GL Plan.fwd_mat/inv_mat/polymul_mat (round 5): the unbatched
-    matrix-form twins over uint64 matrices (and limb pairs via the same
-    _wrap conversion) match the flat callables bit-exactly."""
-    from ntt_aie_tpu.goldilocks_plan import build_goldilocks_plan
+    """GL Plan.fwd_mat/inv_mat/polymul_mat: the unbatched matrix-form
+    views over uint64 matrices (and limb pairs via the same _wrap
+    conversion) match the flat callables bit-exactly."""
+    from ntt_aie.goldilocks_plan import build_goldilocks_plan
 
     cfg = NTTConfig(field=GL, log_n=9, rows_log2=4)
-    plan = build_goldilocks_plan(cfg, engine="pallas", interpret=True)
+    plan = build_goldilocks_plan(cfg)
     n1, n2 = cfg.split
     a = _rand(rng, cfg.n)
     b = _rand(rng, cfg.n)
@@ -291,55 +204,27 @@ def test_gl_unbatched_matrix_form_twins(rng):
     pm = np.asarray(plan.polymul_mat(a.reshape(n1, n2), b.reshape(n1, n2)))
     assert np.array_equal(pm.reshape(cfg.n), np.asarray(plan.polymul(a, b)))
 
-    # xla engine has no matrix-form kernels
-    assert build_goldilocks_plan(cfg, engine="xla").fwd_mat is None
+    # flat-split plans have no matrix-form views
+    assert build_goldilocks_plan(NTTConfig(field=GL, log_n=9)).fwd_mat is None
 
 
-def test_gl_wmat_fold_matches_default(rng):
-    """GL wmat_fold plans (round 5: the four-step gl_mul rides the
-    transposing pass's exit 'post_t') are bit-identical to the entry
-    placement for fwd/inv/polymul, unbatched + batched + matrix-form."""
-    from ntt_aie_tpu.goldilocks_plan import build_goldilocks_plan
+def test_gl_engine_cuda_raises():
+    """There is no CUDA Goldilocks column pass: asking for it raises."""
+    from ntt_aie.goldilocks_plan import build_goldilocks_plan
 
     cfg = NTTConfig(field=GL, log_n=9, rows_log2=4)
-    # fold is the GL default too since its own never-worse A/B
-    # (scripts/bench_gl_fold.py); False is the entry-placement arm
-    base = build_goldilocks_plan(cfg, engine="pallas", interpret=True,
-                                 wmat_fold=False)
-    fold = build_goldilocks_plan(cfg, engine="pallas", interpret=True)
-    assert fold.wmat_fold and not base.wmat_fold
-    n1, n2 = cfg.split
-    a = _rand(rng, cfg.n)
-    b = _rand(rng, cfg.n)
-
-    want = np.asarray(base.fwd(a))
-    assert np.array_equal(np.asarray(fold.fwd(a)), want)
-    assert np.array_equal(np.asarray(fold.inv(want)), a)
-    assert np.array_equal(np.asarray(fold.polymul(a, b)),
-                          np.asarray(base.polymul(a, b)))
-
-    B = 2
-    ab = np.stack([a, b])
-    bf, bb = fold.make_batched(B), base.make_batched(B)
-    assert np.array_equal(np.asarray(bf["fwd"](ab)), np.asarray(bb["fwd"](ab)))
-    fm = np.asarray(bf["fwd_mat"](ab.reshape(B, n1, n2)))
-    assert np.array_equal(fm, np.asarray(bb["fwd_mat"](ab.reshape(B, n1, n2))))
-    assert np.array_equal(np.asarray(bf["inv_mat"](fm)).reshape(B, cfg.n), ab)
-
-    # factored downgrade: fold only applies in full-matrix mode
-    assert not build_goldilocks_plan(cfg, engine="pallas", interpret=True,
-                                     wmat_factored=True,
-                                     wmat_fold=True).wmat_fold
+    with pytest.raises(ValueError, match="XLA engine only"):
+        build_goldilocks_plan(cfg, engine="cuda")
 
 
 def test_gl_context_matrix_form_surface(rng):
     """NTTContext's matrix-form delegates work for Goldilocks configs
     (uint64 matrices in/out through the limb conversion)."""
-    from ntt_aie_tpu.api import NTTContext
-    from ntt_aie_tpu.ops import modops as M
+    from ntt_aie.api import NTTContext
+    from ntt_aie.ops import modops as M
 
     cfg = NTTConfig(field=GL, log_n=9, rows_log2=4)
-    ctx = NTTContext(cfg, engine="pallas", interpret=True)
+    ctx = NTTContext(cfg)
     n1, n2 = cfg.split
     a = _rand(rng, cfg.n)
     fm = np.asarray(ctx.forward_mat(a.reshape(n1, n2)))
@@ -358,16 +243,15 @@ def test_gl_context_matrix_form_surface(rng):
 
 
 def test_gl_batched_negacyclic(rng):
-    """GL batched negacyclic (round 5: parity with the 32-bit batched
-    dicts): pallas four-step (flat + matrix-form), flat-split
-    batch-to-lanes, and the vmap fallback all match the schoolbook."""
-    from ntt_aie_tpu.goldilocks_plan import build_goldilocks_plan
+    """GL batched negacyclic: four-step (flat + matrix-form) and
+    flat-split batch-to-lanes match the schoolbook."""
+    from ntt_aie.goldilocks_plan import build_goldilocks_plan
 
     B = 2
-    # pallas four-step
+    # four-step
     cfg = NTTConfig(field=GL, log_n=8, rows_log2=4, negacyclic=True)
     n1, n2 = cfg.split
-    plan = build_goldilocks_plan(cfg, engine="pallas", interpret=True)
+    plan = build_goldilocks_plan(cfg)
     bat = plan.make_batched(B)
     a = np.stack([_rand(rng, cfg.n) for _ in range(B)])
     b = np.stack([_rand(rng, cfg.n) for _ in range(B)])
@@ -381,7 +265,7 @@ def test_gl_batched_negacyclic(rng):
     gm = np.asarray(bat["negacyclic_polymul_mat"](a.reshape(B, n1, n2),
                                                   b.reshape(B, n1, n2)))
     assert np.array_equal(gm.reshape(B, cfg.n), got)
-    # unbatched matrix twin
+    # unbatched matrix view
     g1 = np.asarray(plan.negacyclic_polymul_mat(a[0].reshape(n1, n2),
                                                 b[0].reshape(n1, n2)))
     assert np.array_equal(g1.reshape(cfg.n), got[0])
@@ -397,8 +281,3 @@ def test_gl_batched_negacyclic(rng):
         want = ref.schoolbook_negacyclic(af[r].astype(object),
                                          bf[r].astype(object), GL.p)
         assert np.array_equal(got_f[r].astype(object), want.astype(object))
-
-    # xla four-step engine (vmap fallback)
-    bat_x = build_goldilocks_plan(cfg, engine="xla").make_batched(B)
-    got_x = np.asarray(bat_x["negacyclic_polymul"](a, b))
-    assert np.array_equal(got_x, got)

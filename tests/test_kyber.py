@@ -3,9 +3,9 @@ implementation of the standard, plus the ring product vs schoolbook."""
 
 import numpy as np
 
-from ntt_aie_tpu import fields as F
-from ntt_aie_tpu import kyber as K
-from ntt_aie_tpu import reference as ref
+from ntt_aie import fields as F
+from ntt_aie import kyber as K
+from ntt_aie import reference as ref
 
 Q = 3329
 
@@ -89,7 +89,7 @@ def test_batched(rng):
 def test_mlkem_native_schoolbook_gate(tmp_path, rng):
     """The ML-KEM ring product against the independently compiled C++
     schoolbook oracle (CLAUDE.md: every device path gets a native gate)."""
-    from ntt_aie_tpu import native_oracle as native
+    from ntt_aie import native_oracle as native
 
     a = rng.integers(0, Q, 256)
     b = rng.integers(0, Q, 256)
@@ -150,7 +150,7 @@ def test_matvec_shared_matrix_batched_vectors(rng):
 def test_matvec_native_gate(rng):
     """Matvec summation vs the native C++ schoolbook oracle: each term
     product comes from C++, the sum is exact host arithmetic."""
-    from ntt_aie_tpu import native_oracle as native
+    from ntt_aie import native_oracle as native
 
     k = 2
     A = rng.integers(0, Q, (k, k, 256))

@@ -1,14 +1,14 @@
 """Device modular arithmetic vs native scalar models: bit-exact, exhaustive
 edge cases + randomized sweeps (jit-compiled; runs on the CPU backend here,
-integer semantics are identical on TPU — verified separately on hardware)."""
+integer semantics are identical on the GPU)."""
 
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 
-from ntt_aie_tpu import fields as F
-from ntt_aie_tpu.ops import modops as M
+from ntt_aie import fields as F
+from ntt_aie.ops import modops as M
 
 GL_P = F.GOLDILOCKS.p
 
@@ -45,7 +45,7 @@ def test_add_sub_mod(field, rng):
 
 
 def test_barrett_mul_matches_native(rng):
-    native = pytest.importorskip("ntt_aie_tpu.native_oracle")
+    native = pytest.importorskip("ntt_aie.native_oracle")
     try:
         native.load()
     except native.NativeOracleUnavailable:
@@ -138,7 +138,7 @@ def test_gl_mul(rng):
 
 
 def test_gl_mul_matches_native(rng):
-    native = pytest.importorskip("ntt_aie_tpu.native_oracle")
+    native = pytest.importorskip("ntt_aie.native_oracle")
     try:
         native.load()
     except native.NativeOracleUnavailable:
@@ -173,7 +173,7 @@ def test_harvey4_mul_data_lazy_domain_bound(rng):
     products from any inputs in the full [0, 4p) travel domain, including
     the extremes (VERDICT r2 weak #6 / next #8). Bound: x folded once to
     [0, 2p), y untouched in [0, 4p) -> x*y < 8p^2 < p*2^32 for p < 2^29."""
-    from ntt_aie_tpu.ops.reductions import make_reduction
+    from ntt_aie.ops.reductions import make_reduction
 
     field = F.P_469762049
     p = field.p

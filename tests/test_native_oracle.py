@@ -5,11 +5,11 @@ other')."""
 import numpy as np
 import pytest
 
-from ntt_aie_tpu import fields as F
-from ntt_aie_tpu import reference as ref
-from ntt_aie_tpu import twiddles as tw
+from ntt_aie import fields as F
+from ntt_aie import reference as ref
+from ntt_aie import twiddles as tw
 
-native = pytest.importorskip("ntt_aie_tpu.native_oracle")
+native = pytest.importorskip("ntt_aie.native_oracle")
 
 try:
     native.load()
@@ -117,9 +117,9 @@ def test_goldilocks_ntt_native(rng):
 
 def test_native_polymul_oracles(rng):
     """C++ cyclic/negacyclic polymul vs the NumPy oracle."""
-    from ntt_aie_tpu import fields as F
-    from ntt_aie_tpu import reference as ref
-    from ntt_aie_tpu import native_oracle as native
+    from ntt_aie import fields as F
+    from ntt_aie import reference as ref
+    from ntt_aie import native_oracle as native
 
     field = F.P_2013265921
     n = 64
@@ -143,8 +143,8 @@ def test_native_polymul_oracles(rng):
 
 def test_nttverify_gate_roundtrip(tmp_path, rng):
     """The standalone binary PASSes on honest vectors, FAILs on corrupted."""
-    from ntt_aie_tpu import fields as F
-    from ntt_aie_tpu import native_oracle as native
+    from ntt_aie import fields as F
+    from ntt_aie import native_oracle as native
 
     field = F.P_469762049
     n = 256

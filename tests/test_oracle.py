@@ -7,11 +7,11 @@ here the same semantics are pinned at several depths plus property tests
 import numpy as np
 import pytest
 
-from ntt_aie_tpu import fields as F
-from ntt_aie_tpu import reference as ref
-from ntt_aie_tpu import twiddles as tw
-from ntt_aie_tpu.config import NTTConfig
-from ntt_aie_tpu.api import NTTContext
+from ntt_aie import fields as F
+from ntt_aie import reference as ref
+from ntt_aie import twiddles as tw
+from ntt_aie.config import NTTConfig
+from ntt_aie.api import NTTContext
 
 KYBER = F.KYBER
 

@@ -4,11 +4,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from ntt_aie_tpu import fields as F
-from ntt_aie_tpu import reference as ref
-from ntt_aie_tpu import twiddles as tw
-from ntt_aie_tpu.config import NTTConfig
-from ntt_aie_tpu.api import NTTContext
+from ntt_aie import fields as F
+from ntt_aie import reference as ref
+from ntt_aie import twiddles as tw
+from ntt_aie.config import NTTConfig
+from ntt_aie.api import NTTContext
 
 
 @pytest.mark.parametrize("field,red", [(F.KYBER, "barrett"), (F.P_2013265921, "montgomery")])
@@ -113,8 +113,8 @@ def test_reference_parity_device():
 
 def test_reference_parity_partial_depth():
     """test_stage hook parity at every depth (src/test.cpp:55-57)."""
-    from ntt_aie_tpu.ops import stages as S
-    from ntt_aie_tpu.ops.reductions import make_reduction
+    from ntt_aie.ops import colnet
+    from ntt_aie.ops.reductions import make_reduction
 
     n = 1 << 8
     field = F.KYBER
@@ -124,7 +124,7 @@ def test_reference_parity_partial_depth():
     a = np.arange(n)
     for stage in range(8):
         got = np.asarray(
-            S.reference_network_stages(
+            colnet.reference_network_stages(
                 jnp.asarray(a, dtype=jnp.uint32), table, field.p, red, stages=stage
             )
         )
@@ -200,7 +200,7 @@ def test_harvey4_forward_roundtrip_polymul(rng):
 def test_harvey4_mulc_domain_and_values(rng):
     """mul_const: any x < 2^32 is legal input; output in [0, 4p) and
     congruent to x*w mod p (the approximation error is bounded by 2p)."""
-    from ntt_aie_tpu.ops.reductions import make_reduction
+    from ntt_aie.ops.reductions import make_reduction
 
     field = F.P_469762049
     p = field.p
@@ -213,24 +213,6 @@ def test_harvey4_mulc_domain_and_values(rng):
     assert np.array_equal(got % p, (x.astype(np.uint64) * w.astype(np.uint64)) % p)
     canon = np.asarray(red.canonicalize(jnp.asarray(got.astype(np.uint32))))
     assert canon.max() < p
-
-
-# ---- Pallas engine (interpret mode on CPU) ----
-
-def test_pallas_engine_matches_xla(rng):
-    from ntt_aie_tpu.plan import build_plan
-
-    field = F.P_469762049
-    cfg = NTTConfig(field=field, log_n=11, rows_log2=4)  # (16, 128): 1 slab
-    a = rng.integers(0, field.p, cfg.n)
-    aj = jnp.asarray(a, dtype=jnp.uint32)
-    plan_x = build_plan(cfg, engine="xla")
-    plan_p = build_plan(cfg, engine="pallas", interpret=True)
-    fx = np.asarray(plan_x.fwd(aj))
-    fp = np.asarray(plan_p.fwd(aj))
-    assert np.array_equal(fx, fp)
-    back = np.asarray(plan_p.inv(jnp.asarray(fp)))
-    assert np.array_equal(back, a)
 
 
 def test_polymul_with_natural_ordering(rng):
@@ -247,13 +229,13 @@ def test_polymul_with_natural_ordering(rng):
 
 
 def test_pallas_batched_batch_one(rng):
-    """Regression: make_batched(1) builds unbatched 2-D kernels; the (1, n)
-    input must reshape to (n1, n2), not (1, n1, n2)."""
-    from ntt_aie_tpu.plan import build_plan
+    """Regression: make_batched(1) on a four-step plan: the (1, n) input
+    keeps its batch dim through the passes."""
+    from ntt_aie.plan import build_plan
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=11, rows_log2=4)
-    plan_p = build_plan(cfg, engine="pallas", interpret=True)
+    plan_p = build_plan(cfg)
     a = rng.integers(0, field.p, cfg.n)
     batched = plan_p.make_batched(1)
     got = np.asarray(batched["fwd"](jnp.asarray(a[None], dtype=jnp.uint32)))
@@ -277,12 +259,12 @@ def test_host_oracle_matches_device_default_ordering(rng):
 
 def test_pallas_batched_honors_natural_ordering(rng):
     """Regression (review finding): make_batched must apply the natural-
-    ordering wrapper on the pallas engine, like the unbatched callables."""
-    from ntt_aie_tpu.plan import build_plan
+    ordering wrapper on four-step plans, like the unbatched callables."""
+    from ntt_aie.plan import build_plan
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=11, rows_log2=4, ordering="natural")
-    plan = build_plan(cfg, engine="pallas", interpret=True)
+    plan = build_plan(cfg)
     a = rng.integers(0, field.p, cfg.n)
     batched = plan.make_batched(2)
     got = np.asarray(batched["fwd"](jnp.asarray(np.stack([a, a]), dtype=jnp.uint32)))
@@ -303,13 +285,12 @@ def test_non_primitive_generator_rejected():
 
 
 def test_negacyclic_fused_pallas(rng):
-    """The fully fused RLWE pipeline (psi scalings riding the colpass
-    wmat slots) matches the oracle, both reductions."""
-    from ntt_aie_tpu.plan import build_plan
+    """The four-step RLWE pipeline matches the oracle, both reductions."""
+    from ntt_aie.plan import build_plan
 
     for field in (F.P_469762049, F.P_2013265921):
         cfg = NTTConfig(field=field, log_n=10, rows_log2=3, negacyclic=True)
-        plan = build_plan(cfg, engine="pallas", interpret=True)
+        plan = build_plan(cfg)
         a = rng.integers(0, field.p, cfg.n)
         b = rng.integers(0, field.p, cfg.n)
         got = np.asarray(plan.negacyclic_polymul(
@@ -319,11 +300,11 @@ def test_negacyclic_fused_pallas(rng):
 
 
 def test_negacyclic_batched_pallas(rng):
-    from ntt_aie_tpu.plan import build_plan
+    from ntt_aie.plan import build_plan
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=9, rows_log2=3, negacyclic=True)
-    plan = build_plan(cfg, engine="pallas", interpret=True)
+    plan = build_plan(cfg)
     B = 2
     a = rng.integers(0, field.p, (B, cfg.n))
     b = rng.integers(0, field.p, (B, cfg.n))
@@ -338,11 +319,11 @@ def test_negacyclic_batched_pallas(rng):
 def test_pallas_batched_polymul_natural_ordering(rng):
     """Regression (2nd review): batched polymul must use the raw spectral
     forward even when the ordering wrapper rebinds fwd_b."""
-    from ntt_aie_tpu.plan import build_plan
+    from ntt_aie.plan import build_plan
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=11, rows_log2=4, ordering="natural")
-    plan = build_plan(cfg, engine="pallas", interpret=True)
+    plan = build_plan(cfg)
     a = rng.integers(0, field.p, (2, cfg.n))
     b = rng.integers(0, field.p, (2, cfg.n))
     got = np.asarray(plan.make_batched(2)["polymul"](
@@ -352,7 +333,7 @@ def test_pallas_batched_polymul_natural_ordering(rng):
 
 
 def test_xla_batched_includes_negacyclic(rng):
-    from ntt_aie_tpu.plan import build_plan
+    from ntt_aie.plan import build_plan
 
     field = F.P_2013265921
     cfg = NTTConfig(field=field, log_n=8, negacyclic=True)
@@ -371,81 +352,6 @@ def test_inverse_host_reference_convention_raises():
     ctx = NTTContext(cfg)
     with pytest.raises(NotImplementedError):
         ctx.inverse_host(np.zeros(cfg.n, dtype=np.int64))
-
-
-def test_fused_fourstep_single_kernel(rng):
-    """Single-kernel whole-transform (both passes + in-register transpose)
-    matches the two-kernel path, forward and inverse, incl. negacyclic
-    pre/post fusion (opt-in via build_plan(fused=True); tested here
-    directly at a small size in interpret mode)."""
-    from ntt_aie_tpu.ops import pallas_ntt as PN
-    from ntt_aie_tpu.plan import build_plan
-
-    field = F.P_469762049
-    cfg = NTTConfig(field=field, log_n=10, rows_log2=5, negacyclic=True)
-    n1, n2 = cfg.split
-    plan = build_plan(cfg, engine="xla")
-    a = rng.integers(0, field.p, cfg.n)
-    aj = jnp.asarray(a, dtype=jnp.uint32)
-
-    tabs = tw.fourstep_tables(field, n1, n2)
-    ff = PN.make_fused_fourstep(field, n1, n2, reduction="harvey",
-                                wmid=np.ascontiguousarray(tabs["wmat"].T),
-                                interpret=True)
-    got = np.asarray(ff(aj.reshape(n1, n2))).reshape(-1)
-    assert np.array_equal(got, np.asarray(plan.fwd(aj)))
-
-    fi = PN.make_fused_fourstep(field, n1, n2, reduction="harvey",
-                                wmid=tabs["iwmat_scaled"], inverse=True,
-                                interpret=True)
-    back = np.asarray(fi(jnp.asarray(got, dtype=jnp.uint32).reshape(n2, n1))).reshape(-1)
-    assert np.array_equal(back, a)
-
-    # negacyclic: psi pre / psi^-1 post riding the fused kernels
-    psi = tw.negacyclic_psi_powers(field, cfg.n).reshape(n1, n2)
-    psi_inv = tw.negacyclic_psi_powers(field, cfg.n, inverse=True).reshape(n1, n2)
-    nf = PN.make_fused_fourstep(field, n1, n2, reduction="harvey",
-                                wmid=np.ascontiguousarray(tabs["wmat"].T),
-                                pre=psi, interpret=True)
-    ni = PN.make_fused_fourstep(field, n1, n2, reduction="harvey",
-                                wmid=tabs["iwmat_scaled"], inverse=True,
-                                post=psi_inv, interpret=True)
-    from ntt_aie_tpu.ops.reductions import make_reduction
-    red = make_reduction("harvey", field)
-    b = rng.integers(0, field.p, cfg.n)
-    fa = nf(aj.reshape(n1, n2)).reshape(-1)
-    fb = nf(jnp.asarray(b, dtype=jnp.uint32).reshape(n1, n2)).reshape(-1)
-    fc = red.mul_data(fa, fb)
-    got_n = np.asarray(ni(fc.reshape(n2, n1))).reshape(-1)
-    want_n = ref.negacyclic_polymul(a, b, field)
-    assert np.array_equal(got_n.astype(np.int64), want_n)
-
-
-def test_build_plan_fused_true_wiring(rng):
-    """The fused=True plan wiring (fwd/inv/polymul/negacyclic + batched)
-    matches the default plan, interpret mode."""
-    from ntt_aie_tpu.plan import build_plan
-
-    field = F.P_469762049
-    cfg = NTTConfig(field=field, log_n=10, rows_log2=5, negacyclic=True)
-    base = build_plan(cfg, engine="xla")
-    fz = build_plan(cfg, engine="pallas", interpret=True, fused=True)
-    a = rng.integers(0, field.p, cfg.n)
-    b = rng.integers(0, field.p, cfg.n)
-    aj = jnp.asarray(a, dtype=jnp.uint32)
-    bj = jnp.asarray(b, dtype=jnp.uint32)
-    assert np.array_equal(np.asarray(fz.fwd(aj)), np.asarray(base.fwd(aj)))
-    assert np.array_equal(np.asarray(fz.inv(base.fwd(aj))), a)
-    assert np.array_equal(np.asarray(fz.polymul(aj, bj)),
-                          np.asarray(base.polymul(aj, bj)))
-    assert np.array_equal(np.asarray(fz.negacyclic_polymul(aj, bj)),
-                          np.asarray(base.negacyclic_polymul(aj, bj)))
-    bat = fz.make_batched(2)
-    ab = jnp.asarray(np.stack([a, a]), dtype=jnp.uint32)
-    bb = jnp.asarray(np.stack([b, b]), dtype=jnp.uint32)
-    assert np.array_equal(np.asarray(bat["fwd"](ab))[0], np.asarray(base.fwd(aj)))
-    assert np.array_equal(np.asarray(bat["negacyclic_polymul"](ab, bb))[0],
-                          np.asarray(base.negacyclic_polymul(aj, bj)))
 
 
 def test_flat_batched_lane_layout(rng):
@@ -504,7 +410,7 @@ def test_default_split_flat_cutoff_field_aware():
 @pytest.mark.parametrize("reduction", ["harvey", "harvey4"])
 @pytest.mark.parametrize("fuse", [2, 3, 4])
 def test_colpass_fuse_levels_match(direction, reduction, fuse, rng):
-    """The radix-2^K fused stage groups (ops/pallas_ntt.run_stages) must
+    """The radix-2^K fused stage groups (ops/colnet.run_stages) must
     match the sequential radix-2 network (fuse=1) for BOTH recursion
     directions. DIF raw lazy-domain bits are identical (same per-element
     op sequence regardless of K). DIT subtree outputs that feed the next
@@ -512,25 +418,25 @@ def test_colpass_fuse_levels_match(direction, reduction, fuse, rng):
     group (add_for_mul/sub_for_mul), so fused raw bits differ from fuse=1
     by multiples of p — canonical values must still be bit-equal. Guards
     the whole-half vectorized net_dit restructure + the lazy skip."""
-    from ntt_aie_tpu.ops import pallas_ntt as PN
-    from ntt_aie_tpu.ops.reductions import make_reduction
+    from ntt_aie.ops import colnet
+    from ntt_aie.ops.reductions import make_reduction
 
     field = F.P_469762049
     n1, n2 = 64, 8
-    x = rng.integers(0, field.p, (n1, n2)).astype(np.uint32)
-    base = PN.make_colpass(field, n1, n2, reduction=reduction,
-                           direction=direction, interpret=True, fuse=1)
-    fused = PN.make_colpass(field, n1, n2, reduction=reduction,
-                            direction=direction, interpret=True, fuse=fuse)
+    red = make_reduction(reduction, field)
+    x = jnp.asarray(rng.integers(0, field.p, (n1, n2)).astype(np.uint32))
+    base = colnet.make_col_transform(field, n1, direction=direction, red=red,
+                                     fuse=1)
+    fused = colnet.make_col_transform(field, n1, direction=direction,
+                                      red=red, fuse=fuse)
     got_b, got_f = np.asarray(base(x)), np.asarray(fused(x))
     if direction == "dif":
         assert np.array_equal(got_b, got_f)
     else:
-        red = make_reduction(reduction, field)
         canon = lambda a: np.asarray(red.canonicalize(jnp.asarray(a)))
         assert np.array_equal(canon(got_b), canon(got_f))
-        # group top levels are never lazy: raw colpass output stays in
-        # the travel domain
+        # group top levels are never lazy: raw output stays in the travel
+        # domain
         dom = 4 * field.p if reduction == "harvey4" else 2 * field.p
         assert int(got_f.max()) < dom
 
@@ -554,48 +460,6 @@ def test_fourstep_wfac_product_matches_wmat():
         assert np.array_equal(got.astype(np.int64), np.asarray(full))
 
 
-@pytest.mark.parametrize("redkind,field", [
-    ("harvey4", F.P_469762049),
-    ("harvey", F.P_998244353),
-    ("montgomery", F.P_2013265921),
-])
-def test_plan_wmat_factored_matches_full(redkind, field, rng):
-    """wmat_factored plans must produce bit-identical canonical outputs to
-    the full-matrix plans for fwd/inv/polymul/negacyclic, unbatched and
-    batched (the factored multiply is two chained constant multiplies
-    against sqrt-size tables; values agree mod p by construction)."""
-    from ntt_aie_tpu.plan import build_plan
-
-    cfg = NTTConfig(field=field, log_n=10, rows_log2=5, reduction=redkind,
-                    negacyclic=True)
-    pf = build_plan(cfg, engine="pallas", interpret=True, wmat_factored=True)
-    pl = build_plan(cfg, engine="pallas", interpret=True, wmat_factored=False)
-    # the plan records whether factored kernels were ACTUALLY built (the
-    # request downgrades silently on non-pallas engines; A/B scripts and
-    # the bench CLI report this field)
-    assert pf.wmat_factored and not pl.wmat_factored
-    assert not build_plan(cfg, engine="xla", wmat_factored=True).wmat_factored
-    a = rng.integers(0, field.p, cfg.n).astype(np.uint32)
-    b = rng.integers(0, field.p, cfg.n).astype(np.uint32)
-    aj, bj = jnp.asarray(a), jnp.asarray(b)
-    assert np.array_equal(np.asarray(pf.fwd(aj)), np.asarray(pl.fwd(aj)))
-    assert np.array_equal(np.asarray(pf.inv(pf.fwd(aj))), a)
-    assert np.array_equal(np.asarray(pf.polymul(aj, bj)),
-                          np.asarray(pl.polymul(aj, bj)))
-    assert np.array_equal(np.asarray(pf.negacyclic_polymul(aj, bj)),
-                          np.asarray(pl.negacyclic_polymul(aj, bj)))
-    B = 2
-    bf, blt = pf.make_batched(B), pl.make_batched(B)
-    ab = rng.integers(0, field.p, (B, cfg.n)).astype(np.uint32)
-    bb = rng.integers(0, field.p, (B, cfg.n)).astype(np.uint32)
-    abj, bbj = jnp.asarray(ab), jnp.asarray(bb)
-    assert np.array_equal(np.asarray(bf["fwd"](abj)),
-                          np.asarray(blt["fwd"](abj)))
-    assert np.array_equal(np.asarray(bf["inv"](bf["fwd"](abj))), ab)
-    assert np.array_equal(np.asarray(bf["negacyclic_polymul"](abj, bbj)),
-                          np.asarray(blt["negacyclic_polymul"](abj, bbj)))
-
-
 def test_negacyclic_psi_factors_match_matrix():
     """negacyclic_psi_factors is an exact rank-1 factorization of the psi
     power matrix: row[r] * col[c] == psi^(r*n2 + c) entrywise, forward and
@@ -611,10 +475,10 @@ def test_negacyclic_psi_factors_match_matrix():
 
 
 def test_context_single_chip_plan_kwargs(rng):
-    """NTTContext without mesh= forwards build_plan's own knobs (engine,
-    interpret, fused, wmat_factored) — one entry point, all knobs, like the
-    reference's single CLI surface (src/test.cpp:85-92). Distributed-only
-    kwargs still raise without mesh=."""
+    """NTTContext without mesh= forwards build_plan's own knob (engine) —
+    one entry point, like the reference's single CLI surface
+    (src/test.cpp:85-92). Distributed-only kwargs still raise without
+    mesh=."""
     field = F.P_2013265921
     cfg = NTTConfig(field=field, log_n=10, rows_log2=5)
     a = rng.integers(0, field.p, cfg.n)
@@ -622,10 +486,6 @@ def test_context_single_chip_plan_kwargs(rng):
     want = np.asarray(NTTContext(cfg).forward(aj))
 
     got = np.asarray(NTTContext(cfg, engine="xla").forward(aj))
-    assert np.array_equal(got, want)
-    # pallas engine in interpret mode works on the CPU backend
-    got = np.asarray(
-        NTTContext(cfg, engine="pallas", interpret=True).forward(aj))
     assert np.array_equal(got, want)
 
     with pytest.raises(TypeError, match="need mesh="):
@@ -636,38 +496,37 @@ def test_context_single_chip_plan_kwargs(rng):
 
 def test_dit_nets_match_across_fuse(rng):
     """The three DIT group networks (parts default / tree / iter) and
-    several fuse levels produce identical CANONICAL outputs (raw
-    lazy-domain bits may differ legally) for every lazy reduction.
-    Guards the round-3 net swap (DESIGN.md §3 DIT ladder)."""
-    from ntt_aie_tpu.ops import pallas_ntt as PN
+    several fuse levels of colnet.run_stages produce identical CANONICAL
+    outputs (raw lazy-domain bits may differ legally) for every lazy
+    reduction."""
+    from ntt_aie.ops import colnet
+    from ntt_aie.ops.reductions import make_reduction
 
     n1 = n2 = 64
-    for field, red in ((F.P_469762049, "harvey4"), (F.P_998244353, "harvey"),
-                       (F.P_2013265921, "montgomery")):
+    for field, kind in ((F.P_469762049, "harvey4"), (F.P_998244353, "harvey"),
+                        (F.P_2013265921, "montgomery")):
+        red = make_reduction(kind, field)
+        tws = colnet.stage_tables(
+            tw.dit_stage_twiddles(field, n1, inverse=True), red)
         x = jnp.asarray(rng.integers(0, field.p, (n1, n2)).astype(np.uint32))
         outs = []
         for net, fuse in (("parts", None), ("parts", 3), ("parts", 6),
                           ("tree", 3), ("iter", 3), ("tree", 1)):
-            cp = PN.make_colpass(field, n1, n2, reduction=red,
-                                 direction="dit", inverse_tw=True,
-                                 canonicalize=True, interpret=True,
-                                 dit_net=net, fuse=fuse)
-            outs.append(np.asarray(cp(x)))
+            y = colnet.run_stages(x, tws, "dit", red, fuse=fuse, dit_net=net)
+            outs.append(np.asarray(red.canonicalize(y)))
         for o in outs[1:]:
-            assert np.array_equal(o, outs[0]), (red,)
+            assert np.array_equal(o, outs[0]), (kind,)
 
 
 def test_matrix_form_callables(rng):
     """Matrix-form batched callables (fwd_mat/inv_mat/polymul_mat) are
-    bit-identical to the flat contract under row-major (un)flattening —
-    they exist to skip the flat<->2D boundary retile (a physical lane-axis
-    retile on TPU, ~30% of the chained flat pipeline; DESIGN.md §3)."""
-    from ntt_aie_tpu.plan import build_plan
+    bit-identical to the flat contract under row-major (un)flattening."""
+    from ntt_aie.plan import build_plan
 
     field = F.P_469762049
-    for fused, B in ((False, 3), (False, 1), (True, 2)):
+    for B in (3, 1, 2):
         cfg = NTTConfig(field=field, log_n=10, rows_log2=5)
-        plan = build_plan(cfg, engine="pallas", interpret=True, fused=fused)
+        plan = build_plan(cfg)
         n1, n2 = cfg.split
         bat = plan.make_batched(B)
         a = rng.integers(0, field.p, (B, cfg.n)).astype(np.uint32)
@@ -675,30 +534,30 @@ def test_matrix_form_callables(rng):
         am = jnp.asarray(a.reshape(B, n1, n2))
 
         fm = np.asarray(bat["fwd_mat"](am))
-        assert fm.shape == (B, n2, n1), (fused, B)
+        assert fm.shape == (B, n2, n1), B
         flat = np.asarray(bat["fwd"](jnp.asarray(a)))
-        assert np.array_equal(fm.reshape(B, cfg.n), flat), (fused, B)
+        assert np.array_equal(fm.reshape(B, cfg.n), flat), B
 
         im = np.asarray(bat["inv_mat"](jnp.asarray(fm)))
         assert im.shape == (B, n1, n2)
-        assert np.array_equal(im.reshape(B, cfg.n), a), (fused, B)
+        assert np.array_equal(im.reshape(B, cfg.n), a), B
 
         pm = np.asarray(bat["polymul_mat"](am, jnp.asarray(
             b.reshape(B, n1, n2))))
         assert pm.shape == (B, n1, n2)
         pflat = np.asarray(bat["polymul"](jnp.asarray(a), jnp.asarray(b)))
-        assert np.array_equal(pm.reshape(B, cfg.n), pflat), (fused, B)
+        assert np.array_equal(pm.reshape(B, cfg.n), pflat), B
 
 
 def test_matrix_form_negacyclic_and_natural_gating(rng):
     """negacyclic_polymul_mat matches the flat negacyclic product; natural-
     ordering plans expose the layout-safe polymul_mat but NOT fwd_mat (a
     flat permutation has no cheap matrix-form equivalent)."""
-    from ntt_aie_tpu.plan import build_plan
+    from ntt_aie.plan import build_plan
 
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=9, rows_log2=4, negacyclic=True)
-    plan = build_plan(cfg, engine="pallas", interpret=True)
+    plan = build_plan(cfg)
     n1, n2 = cfg.split
     B = 2
     bat = plan.make_batched(B)
@@ -710,7 +569,7 @@ def test_matrix_form_negacyclic_and_natural_gating(rng):
     assert np.array_equal(gm.reshape(B, cfg.n), gf)
 
     cfgn = NTTConfig(field=field, log_n=9, rows_log2=4, ordering="natural")
-    batn = build_plan(cfgn, engine="pallas", interpret=True).make_batched(B)
+    batn = build_plan(cfgn).make_batched(B)
     assert "fwd_mat" not in batn and "inv_mat" not in batn
     got = np.asarray(batn["polymul_mat"](
         jnp.asarray(a.reshape(B, n1, n2)), jnp.asarray(b.reshape(B, n1, n2))))
@@ -719,17 +578,16 @@ def test_matrix_form_negacyclic_and_natural_gating(rng):
 
 
 def test_unbatched_matrix_form_twins(rng):
-    """Plan.fwd_mat/inv_mat/polymul_mat/negacyclic_polymul_mat (round 5):
-    the B=1 latency twins of the batched *_mat callables — same kernels,
-    no flat boundary retile, bit-identical to the flat callables under
-    row-major (un)flattening. Natural-ordering plans keep the layout-safe
-    polymul twins but drop fwd_mat/inv_mat."""
-    from ntt_aie_tpu.plan import build_plan
+    """Plan.fwd_mat/inv_mat/polymul_mat/negacyclic_polymul_mat: the
+    unbatched views of the batched *_mat callables, bit-identical to the
+    flat callables under row-major (un)flattening. Natural-ordering plans
+    keep the layout-safe polymul views but drop fwd_mat/inv_mat."""
+    from ntt_aie.plan import build_plan
 
     field = F.P_469762049
-    for fused in (False, True):
+    for engine in ("auto", "xla"):
         cfg = NTTConfig(field=field, log_n=10, rows_log2=5, negacyclic=True)
-        plan = build_plan(cfg, engine="pallas", interpret=True, fused=fused)
+        plan = build_plan(cfg, engine=engine)
         n1, n2 = cfg.split
         a = rng.integers(0, field.p, cfg.n).astype(np.uint32)
         b = rng.integers(0, field.p, cfg.n).astype(np.uint32)
@@ -737,26 +595,26 @@ def test_unbatched_matrix_form_twins(rng):
         bm = jnp.asarray(b.reshape(n1, n2))
 
         fm = np.asarray(plan.fwd_mat(am))
-        assert fm.shape == (n2, n1), fused
+        assert fm.shape == (n2, n1), engine
         flat = np.asarray(plan.fwd(jnp.asarray(a)))
-        assert np.array_equal(fm.reshape(cfg.n), flat), fused
+        assert np.array_equal(fm.reshape(cfg.n), flat), engine
 
         im = np.asarray(plan.inv_mat(jnp.asarray(fm)))
         assert im.shape == (n1, n2)
-        assert np.array_equal(im.reshape(cfg.n), a), fused
+        assert np.array_equal(im.reshape(cfg.n), a), engine
 
         pm = np.asarray(plan.polymul_mat(am, bm))
         pflat = np.asarray(plan.polymul(jnp.asarray(a), jnp.asarray(b)))
-        assert np.array_equal(pm.reshape(cfg.n), pflat), fused
+        assert np.array_equal(pm.reshape(cfg.n), pflat), engine
 
         gm = np.asarray(plan.negacyclic_polymul_mat(am, bm))
         gflat = np.asarray(plan.negacyclic_polymul(jnp.asarray(a),
                                                    jnp.asarray(b)))
-        assert np.array_equal(gm.reshape(cfg.n), gflat), fused
+        assert np.array_equal(gm.reshape(cfg.n), gflat), engine
 
     # natural ordering: polymul twins stay, fwd/inv twins are gated off
     cfgn = NTTConfig(field=field, log_n=10, rows_log2=5, ordering="natural")
-    plann = build_plan(cfgn, engine="pallas", interpret=True)
+    plann = build_plan(cfgn)
     assert plann.fwd_mat is None and plann.inv_mat is None
     n1, n2 = cfgn.split
     a = rng.integers(0, field.p, cfgn.n).astype(np.uint32)
@@ -766,19 +624,19 @@ def test_unbatched_matrix_form_twins(rng):
     want = ref.cyclic_polymul(a, b, field)
     assert np.array_equal(got.reshape(cfgn.n).astype(np.int64), want)
 
-    # flat-split and xla plans have no matrix-form kernels
+    # flat-split plans have no matrix-form views
     flatp = build_plan(NTTConfig(field=field, log_n=8, rows_log2=8))
     assert flatp.fwd_mat is None and flatp.polymul_mat is None
 
 
 def test_context_serving_surface(rng):
-    """NTTContext.make_batched / forward_mat / polymul_mat (round 5): the
-    documented L3 driver exposes the serving layout — delegation to the
-    plan's batched dict and the unbatched twins, with clear errors where
-    they don't exist (mesh contexts, xla plans)."""
+    """NTTContext.make_batched / forward_mat / polymul_mat: the documented
+    L3 driver exposes the matrix-form layout — delegation to the plan's
+    batched dict and the unbatched views, with clear errors where they
+    don't exist (flat splits, plans without negacyclic tables)."""
     field = F.P_469762049
     cfg = NTTConfig(field=field, log_n=10, rows_log2=5)
-    ctx = NTTContext(cfg, engine="pallas", interpret=True)
+    ctx = NTTContext(cfg)
     n1, n2 = cfg.split
     B = 2
     bat = ctx.make_batched(B)
@@ -798,90 +656,22 @@ def test_context_serving_surface(rng):
     assert np.array_equal(pm.reshape(cfg.n),
                           np.asarray(ctx.polymul(a[0], a[0])))
 
-    # xla plans have no matrix-form kernels -> informative error
-    ctx_xla = NTTContext(cfg, engine="xla")
+    # flat-split plans have no matrix-form views -> informative error
+    ctx_flat = NTTContext(NTTConfig(field=field, log_n=8, rows_log2=8))
     with pytest.raises(NotImplementedError, match="matrix-form"):
-        ctx_xla.forward_mat(am)
+        ctx_flat.forward_mat(am)
 
-    # negacyclic twin needs negacyclic=True planning (via plan attr)
+    # negacyclic view needs negacyclic=True planning (via plan attr)
     with pytest.raises(NotImplementedError, match="matrix-form"):
-        ctx_xla.negacyclic_polymul_mat(am, am)
+        ctx.negacyclic_polymul_mat(am, am)
 
 
 def test_context_make_batched_rejects_mesh():
     import jax
-    from ntt_aie_tpu.parallel.mesh import make_mesh
+    from ntt_aie.parallel.mesh import make_mesh
 
     mesh = make_mesh(2)
     cfg = NTTConfig(field=F.P_469762049, log_n=10, rows_log2=5, num_shards=2)
     ctx = NTTContext(cfg, mesh=mesh)
     with pytest.raises(NotImplementedError, match="dp_axis"):
         ctx.make_batched(4)
-
-
-def test_plan_wmat_fold_matches_default(rng):
-    """wmat_fold plans (round 5: the four-step multiply rides the
-    transposing pass's exit 'post_t' instead of the next pass's entry)
-    must be bit-identical to the default entry placement for
-    fwd/inv/polymul/negacyclic — unbatched, batched, and matrix-form.
-    The multiply commutes with the inter-pass store/load."""
-    from ntt_aie_tpu.plan import build_plan
-
-    for redkind, field in (("harvey4", F.P_469762049),
-                           ("montgomery", F.P_2013265921)):
-        cfg = NTTConfig(field=field, log_n=10, rows_log2=5, negacyclic=True,
-                        reduction=redkind)
-        # fold is the DEFAULT since the round-5 A/B (never worse, inv
-        # -4.4%); wmat_fold=False is the entry-placement A/B arm
-        base = build_plan(cfg, engine="pallas", interpret=True,
-                          wmat_fold=False)
-        fold = build_plan(cfg, engine="pallas", interpret=True)
-        assert fold.wmat_fold and not base.wmat_fold
-        a = rng.integers(0, field.p, cfg.n).astype(np.uint32)
-        b = rng.integers(0, field.p, cfg.n).astype(np.uint32)
-        aj, bj = jnp.asarray(a), jnp.asarray(b)
-        want_f = np.asarray(base.fwd(aj))
-        assert np.array_equal(np.asarray(fold.fwd(aj)), want_f), redkind
-        assert np.array_equal(np.asarray(fold.inv(jnp.asarray(want_f))),
-                              np.asarray(base.inv(jnp.asarray(want_f))))
-        assert np.array_equal(np.asarray(fold.polymul(aj, bj)),
-                              np.asarray(base.polymul(aj, bj))), redkind
-        assert np.array_equal(np.asarray(fold.negacyclic_polymul(aj, bj)),
-                              np.asarray(base.negacyclic_polymul(aj, bj)))
-
-        B = 2
-        n1, n2 = cfg.split
-        ab = np.stack([a, b])
-        bb = np.stack([b, a])
-        bf, bb_ = fold.make_batched(B), base.make_batched(B)
-        assert np.array_equal(np.asarray(bf["fwd"](jnp.asarray(ab))),
-                              np.asarray(bb_["fwd"](jnp.asarray(ab))))
-        assert np.array_equal(
-            np.asarray(bf["negacyclic_polymul"](jnp.asarray(ab),
-                                                jnp.asarray(bb))),
-            np.asarray(bb_["negacyclic_polymul"](jnp.asarray(ab),
-                                                 jnp.asarray(bb))))
-        am = jnp.asarray(ab.reshape(B, n1, n2))
-        assert np.array_equal(np.asarray(bf["fwd_mat"](am)),
-                              np.asarray(bb_["fwd_mat"](am)))
-        # unbatched matrix twins share the folded kernels
-        assert np.array_equal(
-            np.asarray(fold.polymul_mat(jnp.asarray(a.reshape(n1, n2)),
-                                        jnp.asarray(b.reshape(n1, n2)))),
-            np.asarray(base.polymul_mat(jnp.asarray(a.reshape(n1, n2)),
-                                        jnp.asarray(b.reshape(n1, n2)))))
-
-    # fold silently downgrades off-path (xla / factored / fused)
-    assert not build_plan(cfg, engine="xla", wmat_fold=True).wmat_fold
-    assert not build_plan(cfg, engine="pallas", interpret=True,
-                          wmat_factored=True, wmat_fold=True).wmat_fold
-
-
-def test_colpass_post_t_requires_transpose():
-    from ntt_aie_tpu.ops.pallas_ntt import make_colpass
-
-    field = F.P_469762049
-    wm = np.ones((16, 32), dtype=np.int64)
-    with pytest.raises(ValueError, match="post_t"):
-        make_colpass(field, 32, 16, reduction="harvey4", direction="dif",
-                     wmat=wm, twiddle_pos="post_t", interpret=True)

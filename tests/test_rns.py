@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from ntt_aie_tpu.rns import RNSPolymul
+from ntt_aie.rns import RNSPolymul
 
 
 def _schoolbook_cyclic_int(a, b, n):
@@ -74,7 +74,7 @@ def test_rns_input_validation():
     with pytest.raises(ValueError, match="coefficients"):
         rns.polymul(too_big, ok)
     with pytest.raises(ValueError, match="coprime"):
-        from ntt_aie_tpu import fields as F
+        from ntt_aie import fields as F
 
         RNSPolymul(4, (F.P_998244353, F.P_998244353))
 
@@ -99,23 +99,23 @@ def test_rns_distributed_mesh(rng):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from ntt_aie_tpu.parallel.mesh import make_mesh
+    from ntt_aie.parallel.mesh import make_mesh
 
     mesh = make_mesh(8)
     log_n = 10
     n = 1 << log_n
-    rns = RNSPolymul(log_n, mesh=mesh, engine="xla", overlap_chunks=2)
+    rns = RNSPolymul(log_n, mesh=mesh, overlap_chunks=2)
     bound = rns.max_input_bound()
     a = np.array([int(x) for x in rng.integers(0, bound, n)], dtype=object)
     b = np.array([int(x) for x in rng.integers(0, bound, n)], dtype=object)
     got = rns.polymul(a, b)
     # exact-integer check against the single-chip RNS (itself schoolbook-
     # gated in the tests above) — avoids an O(n^2) object-int schoolbook
-    single = RNSPolymul(log_n, engine="xla")
+    single = RNSPolymul(log_n)
     assert np.array_equal(got, single.polymul(a, b))
 
-    rneg = RNSPolymul(log_n, mesh=mesh, engine="xla", negacyclic=True)
-    sneg = RNSPolymul(log_n, engine="xla", negacyclic=True)
+    rneg = RNSPolymul(log_n, mesh=mesh, negacyclic=True)
+    sneg = RNSPolymul(log_n, negacyclic=True)
     s = np.array([int(x) - bound // 2 for x in rng.integers(0, bound, n)],
                  dtype=object)
     t = np.array([int(x) - bound // 2 for x in rng.integers(0, bound, n)],
@@ -128,7 +128,7 @@ def test_rns_rejects_wide_primes():
     must be an explicit error pointing at the native limb path."""
     import pytest
 
-    from ntt_aie_tpu import fields as F
+    from ntt_aie import fields as F
 
     with pytest.raises(ValueError, match="2\\^31"):
         RNSPolymul(4, (F.GOLDILOCKS, F.P_998244353))
@@ -160,12 +160,12 @@ def test_rns_distributed_dp_batched(rng):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from ntt_aie_tpu.parallel.mesh import make_mesh_2d
+    from ntt_aie.parallel.mesh import make_mesh_2d
 
     mesh = make_mesh_2d(2, 4)
     log_n, B = 10, 4
     n = 1 << log_n
-    rns = RNSPolymul(log_n, mesh=mesh, engine="xla", dp_axis="dp",
+    rns = RNSPolymul(log_n, mesh=mesh, dp_axis="dp",
                      overlap_chunks=2)
     bound = rns.max_input_bound()
     a = np.array([[int(x) for x in rng.integers(-bound, bound, n)]
@@ -173,7 +173,7 @@ def test_rns_distributed_dp_batched(rng):
     b = np.array([[int(x) for x in rng.integers(-bound, bound, n)]
                   for _ in range(B)], dtype=object)
     got = rns.polymul(a, b)
-    single = RNSPolymul(log_n, engine="xla")
+    single = RNSPolymul(log_n)
     want = single.polymul(a, b)
     assert got.shape == (B, n)
     assert np.array_equal(got, want)
@@ -185,38 +185,6 @@ def test_rns_distributed_dp_batched(rng):
     # guard rails: unbatched input with dp_axis, batch without dp_axis
     with pytest.raises(ValueError, match="dp_axis plans take batched"):
         rns.polymul(a[0], b[0])
-    flat = RNSPolymul(log_n, mesh=make_mesh_2d(2, 4), engine="xla")
+    flat = RNSPolymul(log_n, mesh=make_mesh_2d(2, 4))
     with pytest.raises(ValueError, match="needs dp_axis"):
         flat.polymul(a, b)
-
-
-def test_rns_matrix_form_routing(rng):
-    """Round 5 (VERDICT r4 #3): single-chip Pallas RNS routes every
-    residue product through polymul_mat — residues upload host-reshaped
-    to (.., n1, n2), every internal composition stays in matrix form, and
-    one exit flatten recovers the flat contract. Results must be
-    identical to the flat (xla) routing, batched and unbatched, cyclic
-    and negacyclic, for both polymul() and polymul_limbs()."""
-    log_n = 5
-    n = 1 << log_n
-    for nega in (False, True):
-        rp = RNSPolymul(log_n=log_n, negacyclic=nega, engine="pallas",
-                        interpret=True, rows_log2=3)
-        rf = RNSPolymul(log_n=log_n, negacyclic=nega)
-        # pallas four-step plans carry the mat kernels -> routing active
-        assert rp.plans[0].polymul_mat is not None
-        assert rp.plans[0].config.split == (8, 4)
-
-        bound = rp.max_input_bound()
-        a = rng.integers(-bound, bound, n)
-        b = rng.integers(-bound, bound, n)
-        assert np.array_equal(rp.polymul(a, b), rf.polymul(a, b))
-        assert np.array_equal(np.asarray(rp.polymul_limbs(a, b)),
-                              np.asarray(rf.polymul_limbs(a, b)))
-
-        ab = rng.integers(-bound, bound, (2, n))
-        bb = rng.integers(-bound, bound, (2, n))
-        assert np.array_equal(rp.polymul(ab, bb), rf.polymul(ab, bb))
-        got = np.asarray(rp.polymul_limbs(ab, bb))
-        assert got.shape == (2, n, rp.nwords)
-        assert np.array_equal(got, np.asarray(rf.polymul_limbs(ab, bb)))

@@ -8,8 +8,8 @@ scalar modpow and corrupt files fall back to a rebuild.
 import numpy as np
 import pytest
 
-from ntt_aie_tpu import fields as F
-from ntt_aie_tpu import twiddles as tw
+from ntt_aie import fields as F
+from ntt_aie import twiddles as tw
 
 FIELD = F.P_469762049
 
@@ -45,7 +45,7 @@ def test_memo_eviction_bounded():
 
 
 def test_disk_cache_roundtrip(tmp_path, monkeypatch):
-    monkeypatch.setenv("NTT_AIE_TPU_TABLE_CACHE", str(tmp_path))
+    monkeypatch.setenv("NTT_AIE_TABLE_CACHE", str(tmp_path))
     built = tw.fourstep_tables(FIELD, 64, 32)
     files = list(tmp_path.glob("fourstep_*.npz"))
     assert len(files) == 1
@@ -58,7 +58,7 @@ def test_disk_cache_roundtrip(tmp_path, monkeypatch):
 
 
 def test_disk_cache_rejects_tampered_table(tmp_path, monkeypatch):
-    monkeypatch.setenv("NTT_AIE_TPU_TABLE_CACHE", str(tmp_path))
+    monkeypatch.setenv("NTT_AIE_TABLE_CACHE", str(tmp_path))
     tw.fourstep_tables(FIELD, 64, 32)
     path = next(tmp_path.glob("fourstep_*.npz"))
     with np.load(path) as z:
@@ -73,7 +73,7 @@ def test_disk_cache_rejects_tampered_table(tmp_path, monkeypatch):
 
 
 def test_disk_cache_survives_garbage_file(tmp_path, monkeypatch):
-    monkeypatch.setenv("NTT_AIE_TPU_TABLE_CACHE", str(tmp_path))
+    monkeypatch.setenv("NTT_AIE_TABLE_CACHE", str(tmp_path))
     path = tw._fourstep_cache_path(FIELD, 16, 8)
     with open(path, "wb") as f:
         f.write(b"not an npz")
@@ -84,7 +84,7 @@ def test_disk_cache_survives_garbage_file(tmp_path, monkeypatch):
 def test_goldilocks_disk_cache_roundtrip(tmp_path, monkeypatch):
     """GL tables cache on disk since round 4 (uint64 is exact for storage;
     only the arithmetic needs wide math)."""
-    monkeypatch.setenv("NTT_AIE_TPU_TABLE_CACHE", str(tmp_path))
+    monkeypatch.setenv("NTT_AIE_TABLE_CACHE", str(tmp_path))
     assert tw._fourstep_cache_path(F.GOLDILOCKS, 32, 16) is not None
     t1 = tw.fourstep_tables(F.GOLDILOCKS, 32, 16)
     assert tw.fourstep_tables(F.GOLDILOCKS, 32, 16) is t1
@@ -101,7 +101,7 @@ def test_gl_mulmod_vec_matches_native_oracle():
     """The vectorized host Goldilocks mulmod (the round-4 table-build
     engine) is bit-exact vs the native C++ scalar oracle, incl. edges."""
     pytest.importorskip("ctypes")
-    from ntt_aie_tpu import native_oracle as native
+    from ntt_aie import native_oracle as native
 
     try:
         native.load()
@@ -124,8 +124,8 @@ def test_gl_mulmod_vec_matches_native_oracle():
 def test_plans_tolerate_readonly_tables():
     """Every plan builder consumes the now-read-only cached tables; building
     fwd+inv+polymul end-to-end proves none of them mutate in place."""
-    from ntt_aie_tpu.config import NTTConfig
-    from ntt_aie_tpu.plan import build_plan
+    from ntt_aie.config import NTTConfig
+    from ntt_aie.plan import build_plan
 
     cfg = NTTConfig(field=FIELD, log_n=10, rows_log2=5)
     plan = build_plan(cfg, engine="xla")
